@@ -1,0 +1,247 @@
+"""The kernels' plain versions against the JAX Pallas kernels (interpret
+mode), and the wrappers' input checks.  The CUDA kernels themselves run
+only on the card, where ``chip_smoke.py`` holds them to these plain
+versions (this directory's conftest imports JAX, which the card's host
+lacks)."""
+
+import importlib.util
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from force2vec_tpu.models.forces import get_model as jax_model
+from force2vec_tpu.ops.pallas_force import ell_force_mxu
+from force2vec_tpu.ops.pallas_force import grouped_rep_force as jax_rep
+from force2vec_tpu_torch.models.forces import get_model
+from force2vec_tpu_torch.ops import _build
+from force2vec_tpu_torch.ops import force_kernels as fk
+from force2vec_tpu_torch.train.sync import DeviceBucket
+
+C, K, D = 64, 8, 16
+N_TABLE = 200
+STEP = 0.02
+SEPARABLE = ["tdist", "sigmoid", "fr", "linlog", "forceatlas"]
+
+
+def _bucket(seed, dtype, xi_row=None):
+    """A random table, its gather replica and one ELL bucket over it.
+    Bucket rows (below N_TABLE // 2) never neighbour themselves: a → 0
+    makes the 1/a coefficients of fr and forceatlas ill-conditioned."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((N_TABLE, D)).astype(np.float32)
+    xg = torch.from_numpy(x).to(getattr(torch, dtype))
+    nbr = rng.integers(N_TABLE // 2, N_TABLE, (C, K)).astype(np.int32)
+    deg = rng.integers(0, K + 1, C).astype(np.int32)
+    if xi_row is None:
+        xi_row = np.arange(10, 10 + C, dtype=np.int32)
+    invd = (1.0 / rng.integers(1, 20, N_TABLE)).astype(np.float32)
+    return x, xg, nbr, deg, xi_row, invd
+
+
+def _port_edge(name, x, xg, nbr, deg, xi_row, invd):
+    return fk.ell_edge_force(get_model(name), torch.from_numpy(x), xg,
+                             torch.from_numpy(nbr), torch.from_numpy(deg),
+                             torch.from_numpy(xi_row), torch.from_numpy(invd),
+                             STEP).numpy()
+
+
+def _jax_edge(name, x, xg, nbr, deg, xi_row, invd):
+    """ell_force_mxu in interpret mode on xj = xg[nbr], as sync.py feeds it."""
+    jxg = jnp.asarray(xg.float().numpy()).astype(str(xg.dtype).split(".")[1])
+    xj = jnp.take(jxg, jnp.asarray(nbr.reshape(-1)), axis=0).reshape(C, K, D)
+    return np.asarray(ell_force_mxu(
+        jax_model(name), jnp.asarray(x[xi_row]), xj, jnp.asarray(deg),
+        jnp.asarray(invd[xi_row]), STEP, interpret=True))
+
+
+@pytest.mark.parametrize("name", SEPARABLE)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ell_edge_force_matches_pallas(name, dtype):
+    args = _bucket(7, dtype)
+    # the MXU kernel's norm-form a differs from the diff form by f32
+    # rounding, which 1/a coefficients amplify near a → 0
+    tol = 2e-4 if dtype == "float32" else 6e-3
+    np.testing.assert_allclose(_port_edge(name, *args), _jax_edge(name, *args),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ell_edge_force_hub_rows_match_pallas(dtype):
+    """Hub virtual rows: several bucket rows read one owner's x and invd."""
+    owners = np.repeat(np.arange(20, 20 + C // 4, dtype=np.int32), 4)
+    args = _bucket(8, dtype, xi_row=owners)
+    tol = 2e-4 if dtype == "float32" else 6e-3
+    np.testing.assert_allclose(_port_edge("tdist", *args),
+                               _jax_edge("tdist", *args), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("name", SEPARABLE)
+def test_ell_edge_force_zero_degree_rows_are_zero(name):
+    x, xg, nbr, _, xi_row, invd = _bucket(9, "bfloat16")
+    got = _port_edge(name, x, xg, nbr, np.zeros(C, np.int32), xi_row, invd)
+    np.testing.assert_array_equal(got, 0.0)
+
+
+def test_ell_edge_force_writes_into_out():
+    x, xg, nbr, deg, xi_row, invd = _bucket(10, "float32")
+    model = get_model("tdist")
+    t = [torch.from_numpy(a) for a in (x, nbr, deg, xi_row, invd)]
+    out = torch.full((C + 4, D), 7.0)
+    got = fk.ell_edge_force(model, t[0], xg, t[1], t[2], t[3], t[4], STEP,
+                            out=out[2:2 + C])
+    assert got.data_ptr() == out[2].data_ptr()
+    want = fk.ell_edge_force_plain(model, t[0], xg, *t[1:], STEP)
+    torch.testing.assert_close(out[2:2 + C], want)
+    assert (out[:2] == 7.0).all() and (out[2 + C:] == 7.0).all()
+
+
+@pytest.mark.parametrize("name", ["tdist", "sigmoid", "fr"])
+@pytest.mark.parametrize("c,group", [(512, 128), (400, 128), (256, 256)])
+def test_grouped_rep_force_matches_pallas(name, c, group):
+    ns = 5
+    ng = -(-c // group)
+    rng = np.random.default_rng(2)
+    xi = rng.standard_normal((c, D)).astype(np.float32)
+    sg = jnp.asarray(rng.standard_normal((ng, ns, D)), jnp.bfloat16)
+    want = jax_rep(jax_model(name), group, jnp.asarray(xi), sg, STEP,
+                   interpret=True)
+    got = fk.grouped_rep_force(
+        get_model(name), group, torch.from_numpy(xi),
+        torch.from_numpy(np.array(sg.astype(jnp.float32))).bfloat16(), STEP)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_wrappers_reject_bad_inputs():
+    x, xg, nbr, deg, xi_row, invd = _bucket(11, "bfloat16")
+    model = get_model("tdist")
+    t = dict(x=torch.from_numpy(x), xg=xg, nbr=torch.from_numpy(nbr),
+             deg=torch.from_numpy(deg), xi_row=torch.from_numpy(xi_row),
+             invd=torch.from_numpy(invd))
+
+    def edge(**over):
+        a = {**t, **over}
+        return fk.ell_edge_force(model, a["x"], a["xg"], a["nbr"], a["deg"],
+                                 a["xi_row"], a["invd"], STEP)
+
+    edge()
+    for bad in (dict(x=t["x"].double()), dict(nbr=t["nbr"].long()),
+                dict(xg=xg.half()), dict(deg=t["deg"][:-1]),
+                dict(x=t["x"].t()), dict(invd=t["invd"][:-1]),
+                dict(xg=xg[:-1])):
+        with pytest.raises(ValueError):
+            edge(**bad)
+    with pytest.raises(ValueError):  # tdist_exact has no separable form
+        fk.ell_edge_force(get_model("tdist_exact"), *t.values(), STEP)
+    xs = torch.from_numpy(x)
+    sg = xg[:5].reshape(1, 5, D)
+    fk.grouped_rep_force(model, 256, xs, sg, STEP)
+    with pytest.raises(ValueError):  # one group of 64 cannot cover 200 rows
+        fk.grouped_rep_force(model, 64, xs, sg, STEP)
+    with pytest.raises(ValueError):
+        fk.grouped_rep_force(model, 256, xs, sg.reshape(5, D), STEP)
+
+
+def test_plain_path_launches_nothing():
+    fk.reset_launch_counts()
+    x, xg, nbr, deg, xi_row, invd = _bucket(12, "bfloat16")
+    _port_edge("tdist", x, xg, nbr, deg, xi_row, invd)
+    assert fk.launch_counts == {"ell_edge_force": 0, "grouped_rep_force": 0}
+
+
+def test_build_names_library_by_source_hash(monkeypatch, tmp_path):
+    path = _build.library_path()
+    assert path.parent == _build.BUILD_DIR
+    assert path.name.startswith("libf2v_kernels_") and path.suffix == ".so"
+    assert {p.name for p in _build.sources()} == {
+        "ell_edge_force.cu", "grouped_rep_force.cu"}
+    # an edited source gets another library
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for p in _build.CSRC_DIR.iterdir():
+        (src / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(_build, "CSRC_DIR", src)
+    assert _build.library_path() == path
+    (src / "common.cuh").write_text("// edited\n")
+    assert _build.library_path() != path
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build.os, "access",
+                        lambda p, mode: False if "nvcc" in str(p) else True)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build()
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_smoke_bound_passes_plain_and_rejects_planted_faults():
+    """chip_smoke.py's elementwise bound, on the CPU wrappers (the plain
+    versions): the true outputs pass it, and both planted faults fail it."""
+    smoke = _chip_smoke()
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(
+        rng.uniform(-1, 1, (N_TABLE, D)).astype(np.float32))
+    xg = x.bfloat16()
+    _, _, nbr, deg, xi_row, invd = _bucket(13, "bfloat16")
+    b = DeviceBucket(start=0, nbr=torch.from_numpy(nbr),
+                     deg=torch.from_numpy(deg), xi_row=torch.from_numpy(xi_row))
+    invd = torch.from_numpy(invd)
+    group, model = 20, get_model("tdist")
+    sg = xg[torch.from_numpy(rng.integers(0, N_TABLE, (N_TABLE // group, 5)))]
+    edge = fk.ell_edge_force(model, x, xg, b.nbr, b.deg, b.xi_row, invd, STEP)
+    terms = fk.ell_edge_force_terms(model, x, xg, b.nbr, b.deg, b.xi_row,
+                                    invd, STEP)
+    assert smoke.bound_ratio(edge, terms) == 0.0
+    rep = fk.grouped_rep_force(model, group, x, sg, STEP)
+    assert smoke.bound_ratio(
+        rep, fk.grouped_rep_force_terms(model, group, x, sg, STEP)) == 0.0
+    # a row with no terms must be exactly zero
+    assert smoke.bound_ratio(edge + 1e-30, terms) == float("inf")
+    rep_ratio, edge_ratio = smoke.planted_fault_ratios(
+        model, group, x, xg, b, invd, sg, STEP)
+    assert rep_ratio > 1.0 and edge_ratio > 1.0
+
+
+def test_smoke_ptxas_summary_names_each_instance():
+    log = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        "ptxas info    : Compiling entry function '_ZN3f2v50_GLOBAL__N__c28_17"
+        "_ell_edge_force_cu_f6deec6b21ell_edge_force_kernelI13__nv_bfloat16"
+        "Li4ELi0EEEvNS0_8EdgeArgsIT_EE' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN3f2v5",
+        "    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 48 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN3f2v53_GLOBAL__N__011_20"
+        "_grouped_rep_force_cu_b4d24grouped_rep_force_kernelIfLi4ELi2EEEvNS0_"
+        "7RepArgsIT_EE' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 32 registers, used 1 barriers",
+    ])
+    assert _chip_smoke().ptxas_summary(log) == [
+        "ell_edge_force_kernel<bf16, 4, 0>: Used 48 registers, used 0 "
+        "barriers; 8 bytes stack frame, 8 bytes spill stores, 8 bytes spill "
+        "loads",
+        "grouped_rep_force_kernel<f32, 4, 2>: Used 32 registers, used 1 "
+        "barriers; 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        "loads",
+    ]
+
+
+def test_profile_tool_needs_a_card(monkeypatch, capsys):
+    from force2vec_tpu_torch.tools import profile_iter
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert profile_iter.main([]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
