@@ -2,24 +2,46 @@
 
     python3 chip_smoke.py        # from the repository root, one card
 
-Drives ``force2vec_tpu_torch``'s main path — the sync tForce2Vec trainer at
-the ``bench.py`` configuration (131,072-vertex power-law graph, dim 128,
-ns 5, 256-row negative groups, bf16 gathers, min_width 8, hub_width 128):
+Drives ``force2vec_tpu_torch``'s three sync paths at full width, on
+``bench.py``'s graph (131,072-vertex power-law graph, 2,097,122 edges) with
+its configuration (dim 128, ns 5, bf16 gathers, min_width 8,
+hub_width 128):
 
 1. checks for a card and prints its name and power limit;
 2. builds the CUDA kernels from ``force2vec_tpu_torch/ops/csrc`` with nvcc;
+
+the main path, tdist with 256-row group-shared negatives (``-option 5``):
+
 3. holds each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, elementwise and for every separable
-   model, and times both; then shows that the same bound rejects two
-   planted faults;
+   shapes the path gives it, elementwise and for every separable model, and
+   times both; then shows that the same bound rejects two planted faults;
 4. runs one iteration through the kernels and through the plain versions
    from the same X and negatives, and times both;
 5. trains 50 iterations through the kernels, checks the launch counts, that
-   X is finite, and that edges end closer than random pairs.
+   X is finite, and that edges end closer than random pairs;
 
-Every phase raises on failure, so any failure exits non-zero.  The line
-before the last is a JSON record of the kernels; the last line is
-``{"ok": true, "device": {...}}``.
+path A, tdist with per-vertex negatives (``-option 5 -bs 1``):
+
+6. holds ``ell_sample_force`` against its plain version at ``[n_pad, ns]``
+   for the tdist, sigmoid and layout sample forces, times it, and shows
+   that the bound rejects two planted faults;
+7. one iteration both ways, timed; 50 training iterations with exact
+   launch counts, X finite, edges closer than random pairs;
+
+path B, ``rwalk`` (``-option 7``, walk length 5, group-shared negatives):
+
+8. draws walks on the card and checks that every step lands on a
+   neighbour and that steps pick slots uniformly;
+9. 50 training iterations with exact launch counts, X finite, and edges
+   with a larger mean dot product than random pairs;
+10. at the trained X, holds the walk attraction launch against its plain
+    version, and runs one iteration with injected walks both ways, timed.
+
+The quality margins are half of what the JAX package reaches on the CPU
+with the same graph, configuration and iteration count
+(``scripts/jax_quality_reference.py``).  Every phase raises on failure, so
+any failure exits non-zero.  The line before the last is a JSON record of
+the kernels; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import dataclasses
@@ -37,7 +59,7 @@ from force2vec_tpu_torch.ops import _build, force_kernels as fk
 from force2vec_tpu_torch.tools import (BENCH_CONFIG, HUB_WIDTH, MIN_WIDTH,
                                       card_name_and_power, cuda_ms,
                                       queued_device_ms)
-from force2vec_tpu_torch.train.sync import SyncForce2Vec
+from force2vec_tpu_torch.train.sync import DeviceBucket, SyncForce2Vec
 
 TRAIN_ITERS = 50
 # Kernel and plain version see the same bf16 inputs and compute in f32; only
@@ -49,21 +71,37 @@ TRAIN_ITERS = 50
 # K = 128); the reordered warp sum inside each term moves it by less.  The
 # bound scales with each element's own terms, so the few large clamped
 # self-samples do not loosen it for the rest, and a row with no terms must
-# be exactly 0.  ``planted_fault_phase`` shows it rejects 1%-size faults.
+# be exactly 0.  ``planted_fault_ratios`` and
+# ``sample_planted_fault_ratios`` show it rejects 1%-size faults.
 EDGE_TOL = 1e-4
 REP_TOL = 1e-5
 SUM_RTOL = 1e-5
 ITER_TOL = 1e-3  # bench.py's on-chip kernel-vs-plain bound
-# Mean random-pair minus mean edge distance after 50 iterations must exceed
-# this: half of the 0.8205 that the JAX package reaches on the CPU with the
-# same configuration, graph and pair sample (PERF.md §9.6).
+# Quality after 50 iterations: half of what the JAX package reaches on the
+# CPU with the same configuration, graph and pair sample
+# (scripts/jax_quality_reference.py, PERF.md §9.6).  Mean random-pair minus
+# mean edge distance: tdist 0.8205 (group-shared) and 0.8213 (-bs 1).
+# rwalk, a sigmoid model, is held to the statistic it optimises, mean
+# x_i·x_j over edges minus over random pairs: 0.0273 with seed 1 (0.0241
+# and 0.0244 with seeds 2 and 3), clearly positive.
 QUALITY_MARGIN = 0.41
+PV_QUALITY_MARGIN = 0.41
+RWALK_DOT_MARGIN = 0.0136
 QUALITY_PAIRS = 100_000
+# slot-0 share of the first walk step against its expectation (its
+# sampling spread is ~7e-4 over the bench graph's 131,072 rows)
+WALK_UNIFORM_TOL = 0.01
+# The card's peaks for bound_ms (H100 SXM at 700 W): device memory, and
+# f32 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 
 EDGE_SOURCE = "force2vec_tpu_torch/ops/csrc/ell_edge_force.cu"
 REP_SOURCE = "force2vec_tpu_torch/ops/csrc/grouped_rep_force.cu"
+SAMPLE_SOURCE = "force2vec_tpu_torch/ops/csrc/ell_sample_force.cu"
 EDGE_REPLACES = "force2vec_tpu/ops/pallas_force.py:218"
 REP_REPLACES = "force2vec_tpu/ops/pallas_force.py:103"
+SAMPLE_REPLACES = "force2vec_tpu/ops/pallas_force.py:264"
 
 
 def check(cond, msg):
@@ -107,6 +145,47 @@ def bound_ratio(got, terms) -> float:
     return float(torch.where(err == 0, 0.0, err / scale).max())
 
 
+# -- the least time the card could take ---------------------------------------
+
+
+def term_flops(model, kind: str, dim: int) -> int:
+    """f32 operations of one edge or sample term, from the kernels' loops:
+    the per-pair scalar (a dot or a squared distance) and the update."""
+    if kind == "edge":
+        return (4 if model.a_kind == "dot" else 5) * dim
+    # tdist (clamped), sigmoid, layout: common.cuh::add_sample_force
+    return (8, 4, 5)[fk._SAMPLE_MODEL_IDS[model.sample_force]] * dim
+
+
+def ell_work(launches, x, xg, with_invd: bool):
+    """(bytes, terms) that ``ell_edge_force`` or ``ell_sample_force`` over
+    the launches ``(idx, deg, xi_row)`` must move and compute: each input
+    read once (the x and replica rows they touch, the real slots' ids, deg,
+    xi_row and, for the edge force, invd) and each output row written once.
+    Slots past deg are skipped, so they count nothing."""
+    dim = x.shape[1]
+    xi = torch.cat([r for _, _, r in launches]).unique().numel()
+    real = torch.cat([
+        idx[torch.arange(idx.shape[1], device=idx.device)[None, :]
+            < deg[:, None]] for idx, deg, _ in launches])
+    rows = sum(r.numel() for _, _, r in launches)
+    nbytes = (xi * dim * 4 + (xi * 4 if with_invd else 0)
+              + real.unique().numel() * dim * xg.element_size()
+              + real.numel() * 4 + rows * 8 + rows * dim * 4)
+    return nbytes, real.numel()
+
+
+def bound_ms(nbytes: float, flops: float):
+    """(ms, what bounds it): the larger of bytes over the memory rate and
+    operations over the f32 rate."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = flops / F32_FLOPS_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+# -- kernel checks -------------------------------------------------------------
+
+
 def bench_samples(fv, xg, seed):
     """``[ng, ns, D]`` group samples from the bench layout's negative range."""
     ng = -(-fv.layout.n_pad // BENCH_CONFIG.batch_size)
@@ -140,6 +219,18 @@ def check_rep(model, x, sg, step, what):
     return e, ratio
 
 
+def check_sample(model, x, xg, idx, deg, rows, step, what):
+    """One ``ell_sample_force`` launch against the plain terms; returns
+    (max |err|, bound ratio)."""
+    args = (model, x, xg, idx, deg, rows, step)
+    got = fk.ell_sample_force(*args)
+    terms = fk.ell_sample_force_terms(*args)
+    e, ratio = max_err(got, terms.sum(dim=1)), bound_ratio(got, terms)
+    check(ratio <= 1.0, f"ell_sample_force {what}: |err| exceeds {SUM_RTOL} "
+                        f"x sum |terms| by {ratio:.3f}x")
+    return e, ratio
+
+
 def edge_phase(fv, x, xg, card):
     """Edge kernel vs plain for every bucket of the bench layout."""
     err = k_ms = p_ms = 0.0
@@ -156,7 +247,15 @@ def edge_phase(fv, x, xg, card):
             f"{b.nbr.shape[0]} max_abs_err={e:.3e} bound_ratio={ratio:.4f} "
             f"kernel_ms={km:.4f} plain_ms={pm:.4f} [{card}]")
         err, k_ms, p_ms = max(err, e), k_ms + km, p_ms + pm
-    return err, k_ms, p_ms
+    nbytes, terms = ell_work([(b.nbr, b.deg, b.xi_row)
+                              for b in fv.device_buckets], x, xg, True)
+    b_ms, by = bound_ms(nbytes, terms * term_flops(fv.model, "edge",
+                                                   x.shape[1]))
+    say(f"ell_edge_force all {len(fv.device_buckets)} launches: "
+        f"kernel_ms={k_ms:.4f} bound_ms={b_ms:.4f} ({by}: {nbytes / 1e6:.1f} "
+        f"MB, {terms} terms) [{card}]")
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=by)
 
 
 def widest_bucket(fv):
@@ -185,10 +284,15 @@ def rep_phase(fv, x, xg, card):
     args = (fv.model, BENCH_CONFIG.batch_size, x, sg, fv.lr)
     km = cuda_ms(lambda: fk.grouped_rep_force(*args), reps=20)
     pm = cuda_ms(lambda: fk.grouped_rep_force_plain(*args), reps=5)
-    say(f"grouped_rep_force rows={x.shape[0]} groups={sg.shape[0]} "
+    n, dim = x.shape
+    nbytes = 2 * n * dim * 4 + sg.numel() * sg.element_size()
+    b_ms, by = bound_ms(nbytes, n * sg.shape[1]
+                        * term_flops(fv.model, "sample", dim))
+    say(f"grouped_rep_force rows={n} groups={sg.shape[0]} "
         f"max_abs_err={e:.3e} bound_ratio={ratio:.4f} kernel_ms={km:.4f} "
-        f"plain_ms={pm:.4f} [{card}]")
-    return e, km, pm
+        f"plain_ms={pm:.4f} bound_ms={b_ms:.4f} ({by}: "
+        f"{nbytes / 1e6:.1f} MB) [{card}]")
+    return dict(max_abs_err=e, ms=km, plain_ms=pm, bound_ms=b_ms, bound_by=by)
 
 
 def _tdist_rep_r_squared(xi, s, step, rsum=None, mask=None):
@@ -216,6 +320,18 @@ def planted_fault_ratios(model, group, x, xg, b, invd, sg, step):
     return rep_ratio, edge_ratio
 
 
+def sample_planted_fault_ratios(model, x, xg, idx, deg, rows, step):
+    """Bound ratios of ``ell_sample_force``'s output against two faulty
+    plain versions: x_i read from the bf16 replica, and the last sample of
+    each row skipped.  Both must be above 1."""
+    got = fk.ell_sample_force(model, x, xg, idx, deg, rows, step)
+    bf16_xi = bound_ratio(got, fk.ell_sample_force_terms(
+        model, xg.float(), xg, idx, deg, rows, step))
+    skip_last = bound_ratio(got, fk.ell_sample_force_terms(
+        model, x, xg, idx, (deg - 1).clamp(min=0), rows, step))
+    return bf16_xi, skip_last
+
+
 def planted_fault_phase(fv, x, xg):
     """The elementwise bound rejects plausible kernel faults."""
     rep_ratio, edge_ratio = planted_fault_ratios(
@@ -227,13 +343,14 @@ def planted_fault_phase(fv, x, xg):
     check(edge_ratio > 1.0, "the bound passed an attraction with bf16 x_i")
 
 
-def iteration_phase(fv, x0, card):
-    """One iteration through the kernels and through the plain versions."""
-    ng = -(-fv.layout.n_pad // BENCH_CONFIG.batch_size)
-    negs = np.random.default_rng(7).integers(
-        0, fv.graph.n - 1, size=(ng, BENCH_CONFIG.ns)).astype(np.int32)
-    a = fv.run_iteration(x0.clone(), negs)
-    b = fv.run_iteration(x0.clone(), negs, plain=True)
+# -- one iteration, training, quality ------------------------------------------
+
+
+def iteration_phase(fv, x0, card, negs, walks=None):
+    """One iteration through the kernels and through the plain versions,
+    from the same X, negatives and walks; returns (kernel ms, plain ms)."""
+    a = fv.run_iteration(x0.clone(), negs, walks=walks)
+    b = fv.run_iteration(x0.clone(), negs, walks=walks, plain=True)
     e = max_err(a, b)
     check(bool(torch.isfinite(a).all()), "iteration: non-finite X")
     check(e < ITER_TOL, f"iteration kernels vs plain: max |err| {e:.3e}")
@@ -245,32 +362,264 @@ def iteration_phase(fv, x0, card):
     for mode in ("plain", "kernels", "kernels", "plain"):
         xw = xp if mode == "plain" else xk
         times[mode].append(cuda_ms(
-            lambda: fv.run_iteration(xw, negs_t, plain=mode == "plain"),
+            lambda: fv.run_iteration(xw, negs_t, walks=walks,
+                                     plain=mode == "plain"),
             reps=10 if mode == "kernels" else 3))
     k_ms, p_ms = np.mean(times["kernels"]), np.mean(times["plain"])
     say(f"iteration_ms kernels={times['kernels']} plain={times['plain']} "
         f"[{card}]")
     # the same iterations queued ahead of the device: the time once the
     # host's launch cost, which varies with the host's load, is out of it
-    q_ms = queued_device_ms(lambda: fv.run_iteration(xk, negs_t), reps=10)
+    q_ms = queued_device_ms(
+        lambda: fv.run_iteration(xk, negs_t, walks=walks), reps=10)
     say(f"iteration_ms kernels queued ahead of the device={q_ms:.4f} "
         f"[{card}]")
     return k_ms, p_ms
 
 
+def train_phase(fv, expect, card):
+    """``train()`` for TRAIN_ITERS iterations with the launch counts set to
+    0 just before; checks the counts equal ``expect`` and that X is finite.
+    Returns the [n, D] embedding and the counts."""
+    fk.reset_launch_counts()
+    emb = fv.train(iters=TRAIN_ITERS, seed=1)
+    counts = dict(fk.launch_counts)
+    train_ms = fv.last_train_seconds * 1e3 / TRAIN_ITERS
+    say(f"train {TRAIN_ITERS} iterations: {fv.last_train_seconds:.3f} s, "
+        f"{train_ms:.4f} ms/iteration (host clock), launches {counts} "
+        f"[{card}]")
+    check(counts == expect, f"launch counts {counts} != {expect}")
+    check(tuple(emb.shape) == (fv.graph.n, fv.config.dim),
+          f"embedding shape {tuple(emb.shape)}")
+    check(bool(torch.isfinite(emb).all()), "trained X is not finite")
+    return emb, counts
+
+
 def quality(graph, emb):
+    """Mean distance and mean dot product over the edges and over
+    QUALITY_PAIRS random pairs, in f64."""
     dev = emb.device
     src = torch.repeat_interleave(
         torch.arange(graph.n, device=dev),
         torch.as_tensor(graph.degrees, device=dev))
     dst = torch.as_tensor(graph.colids, device=dev).long()
     emb = emb.double()
-    d_edge = float((emb[src] - emb[dst]).norm(dim=1).mean())
     rng = np.random.default_rng(0)
     a = torch.as_tensor(rng.integers(0, graph.n, QUALITY_PAIRS), device=dev)
     b = torch.as_tensor(rng.integers(0, graph.n, QUALITY_PAIRS), device=dev)
-    d_rand = float((emb[a] - emb[b]).norm(dim=1).mean())
-    return d_edge, d_rand
+    return dict(
+        d_edge=float((emb[src] - emb[dst]).norm(dim=1).mean()),
+        d_rand=float((emb[a] - emb[b]).norm(dim=1).mean()),
+        dot_edge=float((emb[src] * emb[dst]).sum(dim=1).mean()),
+        dot_rand=float((emb[a] * emb[b]).sum(dim=1).mean()))
+
+
+def distance_gap_check(graph, emb, margin, what):
+    q = quality(graph, emb)
+    gap = q["d_rand"] - q["d_edge"]
+    say(f"quality {what} after {TRAIN_ITERS} iterations: mean edge distance "
+        f"{q['d_edge']:.4f}, mean random-pair distance {q['d_rand']:.4f}, "
+        f"gap {gap:.4f} (needs > {margin})")
+    check(gap > margin, f"{what}: edges are not closer than random pairs by "
+                        "the margin")
+
+
+# -- the main path -------------------------------------------------------------
+
+
+def main_path(graph, dev, card):
+    fv = SyncForce2Vec(graph, BENCH_CONFIG, MIN_WIDTH, HUB_WIDTH, device=dev)
+    lay = fv.layout
+    say(f"graph n={graph.n} nnz={graph.nnz} n_pad={lay.n_pad} "
+        f"padded_slots={lay.padded_edges} buckets={len(lay.buckets)} "
+        f"hub_rows={sum(b.count for b in lay.buckets if b.owners is not None)}")
+    edge_launches = len(fv.device_buckets)
+
+    x0 = fv.init_embedding(seed=1)
+    xg = x0.to(torch.bfloat16)
+    edge = edge_phase(fv, x0, xg, card)
+    rep = rep_phase(fv, x0, xg, card)
+    other_models_phase(fv, x0, xg)
+    planted_fault_phase(fv, x0, xg)
+    ng = -(-lay.n_pad // BENCH_CONFIG.batch_size)
+    negs = np.random.default_rng(7).integers(
+        0, graph.n - 1, size=(ng, BENCH_CONFIG.ns)).astype(np.int32)
+    iter_ms, iter_plain_ms = iteration_phase(fv, x0, card, negs)
+    updates = graph.nnz + graph.n * BENCH_CONFIG.ns  # bench.py:158-161
+    say(f"ms_per_iteration kernels={iter_ms:.4f} plain={iter_plain_ms:.4f} "
+        f"(CUDA events) [{card}]")
+    say(f"edge_force_updates_per_s kernels={updates / iter_ms / 1e3:.2f} M "
+        f"plain={updates / iter_plain_ms / 1e3:.2f} M [{card}]")
+
+    emb, counts = train_phase(fv, {
+        "ell_edge_force": TRAIN_ITERS * edge_launches,
+        "grouped_rep_force": TRAIN_ITERS, "ell_sample_force": 0}, card)
+    distance_gap_check(graph, emb, QUALITY_MARGIN, "main path")
+    return edge, rep, counts, edge_launches
+
+
+# -- path A: per-vertex negatives ------------------------------------------------
+
+
+def per_vertex_path(graph, dev, card, edge_launches):
+    cfg = dataclasses.replace(BENCH_CONFIG, per_vertex_samples=True)
+    fv = SyncForce2Vec(graph, cfg, MIN_WIDTH, HUB_WIDTH, device=dev)
+    n_pad, ns = fv.layout.n_pad, cfg.ns
+    x0 = fv.init_embedding(seed=1)
+    xg = x0.to(torch.bfloat16)
+    idx = torch.randint(0, graph.n - 1, (n_pad, ns), dtype=torch.int32,
+                        generator=torch.Generator(dev).manual_seed(11),
+                        device=dev)
+    deg = torch.full((n_pad,), ns, dtype=torch.int32, device=dev)
+    rows = torch.arange(n_pad, dtype=torch.int32, device=dev)
+    errs = {}
+    for name in ("tdist", "sigmoid", "fr"):
+        e, ratio = check_sample(get_model(name), x0, xg, idx, deg, rows,
+                                fv.lr, name)
+        say(f"ell_sample_force {name} ({get_model(name).sample_force.__name__}"
+            f") rows={n_pad} ns={ns} max_abs_err={e:.3e} bound_ratio="
+            f"{ratio:.4f}")
+        errs[name] = e
+    err = errs["tdist"]
+    check(err <= REP_TOL, f"ell_sample_force: max |err| {err:.3e} > {REP_TOL}")
+    args = (fv.model, x0, xg, idx, deg, rows, fv.lr)
+    km = cuda_ms(lambda: fk.ell_sample_force(*args), reps=20)
+    pm = cuda_ms(lambda: fk.ell_sample_force_plain(*args), reps=5)
+    nbytes, terms = ell_work([(idx, deg, rows)], x0, xg, False)
+    b_ms, by = bound_ms(nbytes, terms * term_flops(fv.model, "sample",
+                                                   cfg.dim))
+    say(f"ell_sample_force tdist kernel_ms={km:.4f} plain_ms={pm:.4f} "
+        f"bound_ms={b_ms:.4f} ({by}: {nbytes / 1e6:.1f} MB, {terms} terms) "
+        f"[{card}]")
+    bf16_xi, skip_last = sample_planted_fault_ratios(
+        fv.model, x0, xg, idx, deg, rows, fv.lr)
+    say(f"planted faults: sample force with bf16 x_i bound_ratio="
+        f"{bf16_xi:.2f}, last sample skipped bound_ratio={skip_last:.2f} "
+        f"(must be > 1)")
+    check(bf16_xi > 1.0, "the bound passed a sample force with bf16 x_i")
+    check(skip_last > 1.0, "the bound passed a sample force that skips the "
+                           "last sample")
+
+    negs = np.random.default_rng(7).integers(
+        0, graph.n - 1, size=(n_pad, ns)).astype(np.int32)
+    iter_ms, iter_plain_ms = iteration_phase(fv, x0, card, negs)
+    say(f"per-vertex ms_per_iteration kernels={iter_ms:.4f} "
+        f"plain={iter_plain_ms:.4f} (CUDA events) [{card}]")
+    emb, counts = train_phase(fv, {
+        "ell_edge_force": TRAIN_ITERS * edge_launches,
+        "grouped_rep_force": 0, "ell_sample_force": TRAIN_ITERS}, card)
+    distance_gap_check(graph, emb, PV_QUALITY_MARGIN, "-bs 1")
+    return dict(max_abs_err=err, ms=km, plain_ms=pm, bound_ms=b_ms,
+                bound_by=by), counts
+
+
+# -- path B: rwalk -------------------------------------------------------------
+
+
+def check_walks(fv, walks):
+    """Every step of ``walks`` [n_pad, L] lands on a neighbour of the
+    previous position (searched in the sorted src·n_pad + dst keys of the
+    relabeled edges), or stays put on a row of degree 0; and the first
+    step takes slot 0 of its row as often as a uniform slot draw would.
+    Raises on a violation; returns (rows that moved, slot-0 share, its
+    expectation)."""
+    lay, g, dev = fv.layout, fv.graph, walks.device
+    n_pad = lay.n_pad
+    src = torch.as_tensor(lay.inv_perm[np.repeat(np.arange(g.n), g.degrees)],
+                          device=dev).long()
+    dst = torch.as_tensor(lay.inv_perm[g.colids], device=dev).long()
+    keys = torch.sort(src * n_pad + dst).values
+    deg = torch.as_tensor(lay.deg, device=dev)
+    check(tuple(walks.shape) == (n_pad, fv.config.walk_length)
+          and walks.dtype == torch.int32, f"walks {tuple(walks.shape)} "
+                                          f"{walks.dtype}")
+    cur = torch.arange(n_pad, device=dev)
+    moved = 0
+    for step in range(walks.shape[1]):
+        nxt = walks[:, step].long()
+        moves = deg[cur] > 0
+        check(torch.equal(nxt[~moves], cur[~moves]),
+              f"walk step {step}: a row of degree 0 moved")
+        k = cur[moves] * n_pad + nxt[moves]
+        pos = torch.searchsorted(keys, k).clamp(max=keys.numel() - 1)
+        check(bool((keys[pos] == k).all()),
+              f"walk step {step}: a target is not a neighbour")
+        moved += int(moves.sum())
+        cur = nxt
+    # slot 0 of row v holds u0 = pool[base[v]]; a uniform draw lands on u0
+    # with probability (slots of v holding u0) / deg[v]
+    pool = fv.walk_pool.long()
+    base = fv.walk_db[:, 1].long()
+    d = deg.long()
+    multi = torch.nonzero(d > 1).squeeze(1)
+    first = pool[base[multi]]
+    seg = torch.repeat_interleave(multi, d[multi])
+    slot = torch.arange(seg.numel(), device=dev) - torch.repeat_interleave(
+        torch.cumsum(d[multi], 0) - d[multi], d[multi])
+    same = torch.zeros(n_pad, device=dev, dtype=torch.float64).index_add_(
+        0, seg, (pool[base[seg] + slot] == pool[base[seg]]).double())
+    expect = float((same[multi] / d[multi]).mean())
+    share = float((walks[multi, 0].long() == first).double().mean())
+    check(abs(share - expect) < WALK_UNIFORM_TOL,
+          f"walk slot-0 share {share:.4f} vs uniform {expect:.4f}")
+    return moved, share, expect
+
+
+def rwalk_path(graph, dev, card):
+    cfg = dataclasses.replace(BENCH_CONFIG, model="rwalk")
+    fv = SyncForce2Vec(graph, cfg, MIN_WIDTH, HUB_WIDTH, device=dev)
+    n_pad, wl = fv.layout.n_pad, cfg.walk_length
+    gen = torch.Generator(dev).manual_seed(13)
+    walks = fv.draw_walks(gen)
+    moved, share, expect = check_walks(fv, walks)
+    walk_ms = cuda_ms(lambda: fv.draw_walks(gen), reps=10)
+    say(f"walks [{n_pad}, {wl}]: {moved} steps land on neighbours, slot-0 "
+        f"share {share:.4f} vs uniform {expect:.4f}; walk engine ms="
+        f"{walk_ms:.4f} [{card}]")
+
+    emb, counts = train_phase(fv, {
+        "ell_edge_force": TRAIN_ITERS, "grouped_rep_force": TRAIN_ITERS,
+        "ell_sample_force": 0}, card)
+    q = quality(graph, emb)
+    gap = q["dot_edge"] - q["dot_rand"]
+    say(f"quality rwalk after {TRAIN_ITERS} iterations: mean edge x_i.x_j "
+        f"{q['dot_edge']:.4f}, mean random-pair x_i.x_j {q['dot_rand']:.4f}, "
+        f"gap {gap:.4f} (needs > {RWALK_DOT_MARGIN}); distance gap "
+        f"{q['d_rand'] - q['d_edge']:.4f}")
+    check(gap > RWALK_DOT_MARGIN, "rwalk: edges do not have a larger dot "
+                                  "product than random pairs by the margin")
+
+    # The kernel checks run at the trained X: at the [0, 1) init every
+    # x_i.x_j is ~32, where 1 - sigmoid is 0 in f32 and the walk attraction
+    # vanishes.
+    x = fv.pad_embedding(emb)
+    xg = x.to(torch.bfloat16)
+    b = DeviceBucket(start=0, nbr=walks,
+                     deg=torch.full((n_pad,), wl, dtype=torch.int32,
+                                    device=dev),
+                     xi_row=torch.arange(n_pad, dtype=torch.int32, device=dev))
+    e, ratio = check_edge(fv.model, x, xg, b, fv.inv_deg, fv.lr, "walks")
+    args = (fv.model, x, xg, b.nbr, b.deg, b.xi_row, fv.inv_deg, fv.lr)
+    check(bool(fk.ell_edge_force_plain(*args).abs().max() > 0),
+          "the walk attraction is 0 everywhere: the check would be vacuous")
+    km = cuda_ms(lambda: fk.ell_edge_force(*args), reps=20)
+    pm = cuda_ms(lambda: fk.ell_edge_force_plain(*args), reps=5)
+    nbytes, terms = ell_work([(b.nbr, b.deg, b.xi_row)], x, xg, True)
+    b_ms, by = bound_ms(nbytes, terms * term_flops(fv.model, "edge",
+                                                   cfg.dim))
+    say(f"ell_edge_force walks (sigmoid) rows={n_pad} width={wl} "
+        f"max_abs_err={e:.3e} bound_ratio={ratio:.4f} kernel_ms={km:.4f} "
+        f"plain_ms={pm:.4f} bound_ms={b_ms:.4f} ({by}: {nbytes / 1e6:.1f} "
+        f"MB) [{card}]")
+
+    ng = -(-n_pad // cfg.batch_size)
+    negs = np.random.default_rng(7).integers(
+        0, graph.n - 1, size=(ng, cfg.ns)).astype(np.int32)
+    iter_ms, iter_plain_ms = iteration_phase(fv, x, card, negs, walks=walks)
+    say(f"rwalk ms_per_iteration (walks injected) kernels={iter_ms:.4f} "
+        f"plain={iter_plain_ms:.4f}, walk engine {walk_ms:.4f} more (CUDA "
+        f"events) [{card}]")
+    return counts
 
 
 def main() -> int:
@@ -293,59 +642,30 @@ def main() -> int:
     for line in ptxas_summary(lib_path.with_suffix(".log").read_text()):
         say(f"  ptxas: {line}")
 
-    t0 = time.perf_counter()
     graph = synth_powerlaw_graph()
-    fv = SyncForce2Vec(graph, BENCH_CONFIG, MIN_WIDTH, HUB_WIDTH, device=dev)
-    lay = fv.layout
-    say(f"graph n={graph.n} nnz={graph.nnz} n_pad={lay.n_pad} "
-        f"padded_slots={lay.padded_edges} buckets={len(lay.buckets)} "
-        f"hub_rows={sum(b.count for b in lay.buckets if b.owners is not None)}"
-        f" setup_s={time.perf_counter() - t0:.2f}")
-    edge_launches = len(fv.device_buckets)
+    t0 = time.perf_counter()
+    edge, rep, counts_main, edge_launches = main_path(graph, dev, card)
+    say(f"main path: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sample, counts_pv = per_vertex_path(graph, dev, card, edge_launches)
+    say(f"path A (-bs 1): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts_rw = rwalk_path(graph, dev, card)
+    say(f"path B (rwalk): {time.perf_counter() - t0:.1f} s")
 
-    x0 = fv.init_embedding(seed=1)
-    xg = x0.to(torch.bfloat16)
-    edge_err, edge_ms, edge_plain_ms = edge_phase(fv, x0, xg, card)
-    rep_err, rep_ms, rep_plain_ms = rep_phase(fv, x0, xg, card)
-    other_models_phase(fv, x0, xg)
-    planted_fault_phase(fv, x0, xg)
-    iter_ms, iter_plain_ms = iteration_phase(fv, x0, card)
-    updates = graph.nnz + graph.n * BENCH_CONFIG.ns  # bench.py:158-161
-    say(f"ms_per_iteration kernels={iter_ms:.4f} plain={iter_plain_ms:.4f} "
-        f"(CUDA events) [{card}]")
-    say(f"edge_force_updates_per_s kernels={updates / iter_ms / 1e3:.2f} M "
-        f"plain={updates / iter_plain_ms / 1e3:.2f} M [{card}]")
+    paths = {"main": counts_main, "per_vertex": counts_pv,
+             "rwalk": counts_rw}
 
-    fk.reset_launch_counts()
-    emb = fv.train(iters=TRAIN_ITERS, seed=1)
-    counts = dict(fk.launch_counts)
-    train_ms = fv.last_train_seconds * 1e3 / TRAIN_ITERS
-    say(f"train {TRAIN_ITERS} iterations: {fv.last_train_seconds:.3f} s, "
-        f"{train_ms:.4f} ms/iteration (host clock), launches {counts} "
-        f"[{card}]")
-    check(counts["ell_edge_force"] == TRAIN_ITERS * edge_launches,
-          f"ell_edge_force launches {counts['ell_edge_force']} != "
-          f"{TRAIN_ITERS} x {edge_launches}")
-    check(counts["grouped_rep_force"] == TRAIN_ITERS,
-          f"grouped_rep_force launches {counts['grouped_rep_force']} != "
-          f"{TRAIN_ITERS}")
-    check(tuple(emb.shape) == (graph.n, BENCH_CONFIG.dim),
-          f"embedding shape {tuple(emb.shape)}")
-    check(bool(torch.isfinite(emb).all()), "trained X is not finite")
-    d_edge, d_rand = quality(graph, emb)
-    say(f"quality after {TRAIN_ITERS} iterations: mean edge distance "
-        f"{d_edge:.4f}, mean random-pair distance {d_rand:.4f}, gap "
-        f"{d_rand - d_edge:.4f} (needs > {QUALITY_MARGIN})")
-    check(d_rand - d_edge > QUALITY_MARGIN, "edges are not closer than "
-          "random pairs by the margin")
+    def entry(name, source, replaces, measured):
+        by_path = {p: c[name] for p, c in paths.items()}
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "launches_by_path": by_path, **measured, "library_ms": None}
 
     say(json.dumps({"kernels": [
-        {"name": "ell_edge_force", "route": "cuda", "source": EDGE_SOURCE,
-         "replaces": EDGE_REPLACES, "launches": counts["ell_edge_force"],
-         "max_abs_err": edge_err, "ms": edge_ms, "plain_ms": edge_plain_ms},
-        {"name": "grouped_rep_force", "route": "cuda", "source": REP_SOURCE,
-         "replaces": REP_REPLACES, "launches": counts["grouped_rep_force"],
-         "max_abs_err": rep_err, "ms": rep_ms, "plain_ms": rep_plain_ms},
+        entry("ell_edge_force", EDGE_SOURCE, EDGE_REPLACES, edge),
+        entry("grouped_rep_force", REP_SOURCE, REP_REPLACES, rep),
+        entry("ell_sample_force", SAMPLE_SOURCE, SAMPLE_REPLACES, sample),
     ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

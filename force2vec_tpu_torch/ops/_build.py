@@ -1,7 +1,8 @@
 """Build the CUDA kernels with nvcc at first use and load them with ctypes.
 
-Every ``csrc/*.cu`` file goes into one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds, not minutes).
+Every ``csrc/*.cu`` file is compiled by its own nvcc, all at once, and
+linked into one shared library with a plain C interface (no PyTorch
+headers, so a build takes seconds, not minutes).
 The library lands in ``ops/build/`` under a name keyed by a hash of the
 sources and flags, so an edited kernel is rebuilt and an unchanged one is
 loaded as is.  ``nvcc`` is ``$CUDA_HOME/bin/nvcc``, else
@@ -23,7 +24,7 @@ CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P = ctypes.c_void_p
@@ -38,6 +39,10 @@ _SIGNATURES = {
                            _I, _P),
     # xi, sg, sg_is_bf16, step, out, rows, group, ns, dim, model, stream
     "f2v_grouped_rep_force": (_P, _P, _I, _F, _P, _I, _I, _I, _I, _I, _P),
+    # x, xg, xg_is_bf16, idx, deg, xi_row, step, out, rows, width, dim,
+    # model, stream
+    "f2v_ell_sample_force": (_P, _P, _I, _P, _P, _P, _F, _P, _I, _I, _I, _I,
+                             _P),
 }
 
 
@@ -66,31 +71,39 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def _run(cmds) -> str:
+    """Start every command at once and wait for all of them; raise if one
+    failed; return their output, in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, proc, (_, stderr) in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{stderr}")
+    return "".join(stdout + stderr for stdout, stderr in outs)
+
+
 def build() -> Path:
-    """Compile the kernels unless the library for these sources exists.
-    Returns its path.  The compiler's output goes to a ``.log`` beside it
+    """Compile the kernels unless the library for these sources exists:
+    one nvcc per source, all at once, then one link.  Returns the library's
+    path.  The compilers' output goes to a ``.log`` beside it
     (``-Xptxas=-v``: registers, shared memory and spills per kernel)."""
     lib = library_path()
     if lib.exists():
         return lib
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build under a temporary name and rename, so a concurrent or cut-off
+    # build in a temporary directory and rename, so a concurrent or cut-off
     # build never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stderr}")
-        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in sources()]
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                    for src, obj in zip(sources(), objs)])
+        so = os.path.join(tmp, lib.name)
+        _run([[nvcc, "-shared", "-o", so, *objs]])
+        lib.with_suffix(".log").write_text(log)
+        os.replace(so, lib)
     return lib
 
 

@@ -1,4 +1,5 @@
-// Helpers shared by the force kernels: row loads and stores, warp sums.
+// Helpers shared by the force kernels: row loads and stores, warp sums and
+// the sample (repulsion) forces.
 //
 // A warp owns one embedding row of D = 32 * V floats; lane l holds the V
 // contiguous elements [l*V, l*V + V), so a row load is one or two vector
@@ -59,6 +60,55 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 __device__ __forceinline__ float sigmoidf(float a) {
   return 1.0f / (1.0f + expf(-a));
+}
+
+// Model ids of the sample (repulsion) forces, shared with force_kernels.py
+// (_SAMPLE_MODEL_IDS).
+enum SampleModel { kTdistRep = 0, kSigmoidRep = 1, kLayoutRep = 2 };
+constexpr float kMaxBound = 5.0f;  // models/forces.py::MAXBOUND
+
+// acc += sample_force(xi, s, step), models/forces.py::_<model>_rep, for one
+// row held by a warp (lanes hold V elements each).  The per-pair scalar is a
+// warp sum, so every lane of the warp must call it.  The one copy both
+// repulsion kernels use.
+template <int M, int V>
+__device__ __forceinline__ void add_sample_force(const float (&xi)[V],
+                                                 const float (&s)[V],
+                                                 float step, float (&acc)[V]) {
+  float vec[V];
+  float part = 0.0f;
+  if constexpr (M == kSigmoidRep) {
+    // -STEP * sigma(xi . s) * s
+#pragma unroll
+    for (int v = 0; v < V; ++v) part += xi[v] * s[v];
+    const float c = -step * sigmoidf(warp_sum(part));
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] += c * s[v];
+  } else if constexpr (M == kTdistRep) {
+    // STEP * clamp(2 / (r (1 + r)) * (xi - s)), zero at r = 0
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      vec[v] = xi[v] - s[v];
+      part += vec[v] * vec[v];
+    }
+    const float r2 = warp_sum(part);
+    const float d1 = r2 > 0.0f ? 2.0f / (r2 * (1.0f + r2)) : 0.0f;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      acc[v] += step * fminf(fmaxf(d1 * vec[v], -kMaxBound), kMaxBound);
+    }
+  } else {
+    // -(1 / r) * (s - xi), zero at r = 0
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      vec[v] = s[v] - xi[v];
+      part += vec[v] * vec[v];
+    }
+    const float r2 = warp_sum(part);
+    const float c = -(r2 > 0.0f ? 1.0f / r2 : 0.0f);
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] += c * vec[v];
+  }
 }
 
 }  // namespace f2v

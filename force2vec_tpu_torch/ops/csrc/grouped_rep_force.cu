@@ -22,10 +22,6 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr int kRowsPerBlock = 32;
-constexpr float kMaxBound = 5.0f;  // models/forces.py::MAXBOUND
-
-// Model ids shared with force_kernels.py (_SAMPLE_MODEL_IDS).
-enum SampleModel { kTdistRep = 0, kSigmoidRep = 1, kLayoutRep = 2 };
 
 template <typename T>
 struct RepArgs {
@@ -67,40 +63,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     for (int s = 0; s < p.ns; ++s) {
       float sv[V];
       load_row<float, V>(samples + s * D + lane * V, sv);
-      float vec[V];
-      float part = 0.0f;
-      if constexpr (M == kSigmoidRep) {
-        // -STEP * sigma(xi . s) * s
-#pragma unroll
-        for (int v = 0; v < V; ++v) part += xi[v] * sv[v];
-        const float c = -p.step * sigmoidf(warp_sum(part));
-#pragma unroll
-        for (int v = 0; v < V; ++v) acc[v] += c * sv[v];
-      } else if constexpr (M == kTdistRep) {
-        // STEP * clamp(2 / (r (1 + r)) * (xi - s)), zero at r = 0
-#pragma unroll
-        for (int v = 0; v < V; ++v) {
-          vec[v] = xi[v] - sv[v];
-          part += vec[v] * vec[v];
-        }
-        const float r2 = warp_sum(part);
-        const float d1 = r2 > 0.0f ? 2.0f / (r2 * (1.0f + r2)) : 0.0f;
-#pragma unroll
-        for (int v = 0; v < V; ++v) {
-          acc[v] += p.step * fminf(fmaxf(d1 * vec[v], -kMaxBound), kMaxBound);
-        }
-      } else {
-        // -(1 / r) * (s - xi), zero at r = 0
-#pragma unroll
-        for (int v = 0; v < V; ++v) {
-          vec[v] = sv[v] - xi[v];
-          part += vec[v] * vec[v];
-        }
-        const float r2 = warp_sum(part);
-        const float c = -(r2 > 0.0f ? 1.0f / r2 : 0.0f);
-#pragma unroll
-        for (int v = 0; v < V; ++v) acc[v] += c * vec[v];
-      }
+      add_sample_force<M, V>(xi, sv, p.step, acc);
     }
     store_row<V>(p.out + r * D + lane * V, acc);
   }

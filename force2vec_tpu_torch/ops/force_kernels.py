@@ -1,6 +1,17 @@
 """The force kernels of the sync iteration: CUDA wrappers and plain versions.
 
-The counterpart of ``force2vec_tpu/ops/pallas_force.py``.  Each kernel has
+The counterpart of ``force2vec_tpu/ops/pallas_force.py``:
+
+* ``ell_edge_force`` (``csrc/ell_edge_force.cu``): the attraction over an
+  ELL bucket or over the walk table; it replaces ``ell_force_mxu`` and
+  ``ell_force`` with kind ``edge`` (the same function);
+* ``grouped_rep_force`` (``csrc/grouped_rep_force.cu``): the repulsion
+  from group-shared negatives; it replaces ``grouped_rep_force``;
+* ``ell_sample_force`` (``csrc/ell_sample_force.cu``): the repulsion from
+  per-row negatives (``-bs 1``); it replaces ``ell_force`` with kind
+  ``sample``.
+
+Each kernel has
 
 * a wrapper, which checks its inputs and, for CUDA tensors, launches the
   hand-written kernel from ``csrc/`` (built at first use by ``_build``) and
@@ -23,10 +34,11 @@ from force2vec_tpu_torch.models import forces
 from force2vec_tpu_torch.models.forces import ForceModel
 from force2vec_tpu_torch.ops import _build
 
-launch_counts = {"ell_edge_force": 0, "grouped_rep_force": 0}
+launch_counts = {"ell_edge_force": 0, "grouped_rep_force": 0,
+                 "ell_sample_force": 0}
 
-# model ids of csrc/ell_edge_force.cu (EdgeModel) and
-# csrc/grouped_rep_force.cu (SampleModel)
+# model ids of csrc/ell_edge_force.cu (EdgeModel) and of the two repulsion
+# kernels (csrc/common.cuh::SampleModel)
 _EDGE_MODEL_IDS = {
     forces._tdist_coeff: 0,
     forces._sigmoid_coeff: 1,
@@ -199,4 +211,72 @@ def grouped_rep_force(model: ForceModel, group: int, xi, sg,
             _SAMPLE_MODEL_IDS[model.sample_force], _stream(dev))
     _build.check(lib, "grouped_rep_force", err)
     launch_counts["grouped_rep_force"] += 1
+    return out
+
+
+# -- repulsion from per-row samples ------------------------------------------
+
+
+def ell_sample_force_terms(model: ForceModel, x, xg, idx, deg, xi_row,
+                           step) -> torch.Tensor:
+    """[C, K, D] sample_force(x[i], xg[idx[r, k]]) per slot, i = xi_row[r],
+    in f32 and exactly 0 in the padded slots k ≥ deg[r]."""
+    xi = x[xi_row.long()]
+    s = xg[idx.long()].float()  # [C, K, D]
+    k = idx.shape[1]
+    mask = (torch.arange(k, device=idx.device)[None, :]
+            < deg[:, None])[:, :, None]
+    return model.sample_force(xi[:, None, :], s, step, mask=mask)
+
+
+def ell_sample_force_plain(model: ForceModel, x, xg, idx, deg, xi_row,
+                           step) -> torch.Tensor:
+    """out[r] = Σ_{k<deg[r]} sample_force(x[i], xg[idx[r, k]]), i =
+    xi_row[r]: the gather, the model's sample force in f32 and a masked sum
+    over K."""
+    return ell_sample_force_terms(model, x, xg, idx, deg, xi_row,
+                                  step).sum(dim=1)
+
+
+def ell_sample_force(model: ForceModel, x, xg, idx, deg, xi_row, step,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked sample-force sum over per-row samples, gathering in the kernel.
+
+    x [n_pad, D] f32; xg [n_pad, D] bf16 or f32 gather replica of x;
+    idx [C, K] int32 sample rows; deg [C] int32 valid samples per row;
+    xi_row [C] int32 table row whose x each row uses; step a float.
+    Writes into ``out`` [C, D] f32 if given; returns it.  The kernel does
+    not bounds-check ``idx`` or ``xi_row``: they must index rows of ``x``.
+    """
+    _require(model.sample_force in _SAMPLE_MODEL_IDS,
+             f"{model.name} has no sample force kernel")
+    dev = x.device
+    _check("x", x, (torch.float32,), 2, dev)
+    _check("xg", xg, _GATHER_DTYPES, 2, dev)
+    _check("idx", idx, (torch.int32,), 2, dev)
+    _check("deg", deg, (torch.int32,), 1, dev)
+    _check("xi_row", xi_row, (torch.int32,), 1, dev)
+    dim = x.shape[1]
+    c, k = idx.shape
+    _require(xg.shape == x.shape, f"xg {tuple(xg.shape)} != x {tuple(x.shape)}")
+    _require(deg.shape == (c,) and xi_row.shape == (c,),
+             "deg and xi_row must have one entry per row of idx")
+    if out is None:
+        out = torch.empty((c, dim), dtype=torch.float32, device=dev)
+    _check("out", out, (torch.float32,), 2, dev)
+    _require(out.shape == (c, dim), f"out {tuple(out.shape)} != {(c, dim)}")
+    if dev.type == "cpu":
+        out.copy_(ell_sample_force_plain(model, x, xg, idx, deg, xi_row, step))
+        return out
+    _require(dev.type == "cuda", f"no kernel for device {dev}")
+    _check_cuda_operands(dim, x, xg, out)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        err = lib.f2v_ell_sample_force(
+            x.data_ptr(), xg.data_ptr(), int(xg.dtype == torch.bfloat16),
+            idx.data_ptr(), deg.data_ptr(), xi_row.data_ptr(), float(step),
+            out.data_ptr(), c, k, dim, _SAMPLE_MODEL_IDS[model.sample_force],
+            _stream(dev))
+    _build.check(lib, "ell_sample_force", err)
+    launch_counts["ell_sample_force"] += 1
     return out

@@ -1,10 +1,14 @@
 """Where one sync iteration's time goes, at the bench configuration.
 
     python3 -m force2vec_tpu_torch.tools.profile_iter [--iters 20]
+        [--model tdist|sigmoid|rwalk|fr|linlog|forceatlas] [--per-vertex]
         [--trace PATH] [--json PATH]
 
 Needs one CUDA card.  Builds the same ``SyncForce2Vec`` as ``chip_smoke.py``
-(``bench.py``'s graph and TrainConfig) and measures, on the kernel path:
+(``bench.py``'s graph and TrainConfig, with ``--model`` in place of tdist
+and, with ``--per-vertex``, ``-bs 1`` negatives) and measures, on the
+kernel path, an iteration as ``train()`` runs it (for walk models, the
+walk engine's draw included):
 
 * three times each, since the host's speed varies from one moment to the
   next: ``ms_per_iter``, CUDA events over back-to-back ``run_iteration``
@@ -13,7 +17,8 @@ Needs one CUDA card.  Builds the same ``SyncForce2Vec`` as ``chip_smoke.py``
   a sleep kernel, so that the device never waits for the host: the
   iteration's time once launches are free;
 * ``edge_wrapper_host_us``: host time of one ``ell_edge_force`` call on
-  the smallest bucket (its checks, the device guard, the ctypes launch);
+  the smallest bucket, or on the walk table (its checks, the device
+  guard, the ctypes launch);
 * ``device``: from ``torch.profiler``, each device kernel's time and
   launches per iteration, their sum ``busy_ms`` per iteration, the profiled
   wall time per iteration, and ``idle_share = 1 - busy / wall``.
@@ -26,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import sys
 import time
@@ -39,7 +45,7 @@ from force2vec_tpu_torch.ops import force_kernels as fk
 from force2vec_tpu_torch.tools import (BENCH_CONFIG, HUB_WIDTH, MIN_WIDTH,
                                       card_name_and_power, cuda_ms,
                                       queued_device_ms)
-from force2vec_tpu_torch.train.sync import SyncForce2Vec
+from force2vec_tpu_torch.train.sync import DeviceBucket, SyncForce2Vec
 
 
 def host_ms(fn, reps: int) -> float:
@@ -69,6 +75,8 @@ def device_breakdown(prof, iters: int) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--model", default=BENCH_CONFIG.model)
+    ap.add_argument("--per-vertex", action="store_true")
     ap.add_argument("--trace", default=None)
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
@@ -78,25 +86,40 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     card = card_name_and_power()
     print(card, flush=True)
+    print(f"model={args.model} per_vertex={args.per_vertex}", flush=True)
 
-    fv = SyncForce2Vec(synth_powerlaw_graph(), BENCH_CONFIG, MIN_WIDTH,
-                       HUB_WIDTH, device=dev)
-    ng = -(-fv.layout.n_pad // BENCH_CONFIG.batch_size)
+    cfg = dataclasses.replace(BENCH_CONFIG, model=args.model,
+                              per_vertex_samples=args.per_vertex)
+    fv = SyncForce2Vec(synth_powerlaw_graph(), cfg, MIN_WIDTH, HUB_WIDTH,
+                       device=dev)
+    n_pad = fv.layout.n_pad
+    rows = n_pad if cfg.per_vertex_samples else -(-n_pad // cfg.batch_size)
     negs = torch.as_tensor(np.random.default_rng(7).integers(
-        0, fv.graph.n - 1, size=(ng, BENCH_CONFIG.ns)).astype(np.int32),
-        device=dev)
+        0, fv.graph.n - 1, size=(rows, cfg.ns)).astype(np.int32), device=dev)
     x = fv.init_embedding(seed=1)
+    gen = torch.Generator(dev).manual_seed(7)
+    is_walk = fv.model.attraction == "walk"
 
     def iteration():
-        fv.run_iteration(x, negs)
+        fv.run_iteration(x, negs,
+                         walks=fv.draw_walks(gen) if is_walk else None)
 
     for _ in range(5):  # build, load and warm up
         iteration()
-    small = min(fv.device_buckets, key=lambda b: b.nbr.shape[0])
+    # the edge wrapper's host cost, on the smallest launch of the path
+    if is_walk:  # its one launch, over the walk table
+        small = DeviceBucket(
+            0, fv.draw_walks(gen),
+            torch.full((n_pad,), cfg.walk_length, dtype=torch.int32,
+                       device=dev),
+            torch.arange(n_pad, dtype=torch.int32, device=dev))
+    else:
+        small = min(fv.device_buckets, key=lambda b: b.nbr.shape[0])
     xg = x.to(torch.bfloat16)
     wrapper_args = (fv.model, x, xg, small.nbr, small.deg, small.xi_row,
                     fv.inv_deg, fv.lr)
-    res = {"card": card, "repeats": []}
+    res = {"card": card, "model": cfg.model,
+           "per_vertex_samples": cfg.per_vertex_samples, "repeats": []}
     for _ in range(3):
         r = {"ms_per_iter": cuda_ms(iteration, args.iters),
              "host_enqueue_ms": host_ms(iteration, args.iters),

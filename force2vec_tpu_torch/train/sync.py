@@ -6,17 +6,30 @@ once at its end (sample/algorithms.cpp:569-639 with NUMSIZE = n).  One
 iteration over the degree-sorted ELL layout (graphs/csr.py::SyncLayout):
 
 1. ``xg``: the gather replica of X (bf16 when ``gather_dtype`` says so);
-2. one edge-kernel launch per non-hub bucket, written straight into that
-   bucket's rows of the update;
-3. one launch for the hub bucket's virtual rows, whose partial sums are
-   added into their owner rows with ``index_add_``;
-4. the ``[ng, ns, D]`` group-shared negative samples ``xg[negs]`` and one
-   repulsion-kernel launch;
-5. ``X += update`` (or the energy-normalized update), in place.
+2. attraction, by the edge kernel (``ell_edge_force``):
 
-Everything runs in relabeled (degree-sorted) vertex order; ``pad_embedding``
-and ``unpad_embedding`` permute in and out.  Not ported yet: walk models
-(``rwalk``) and per-vertex negatives (``per_vertex_samples``, ``-bs 1``).
+   * CSR models: one launch per non-hub bucket, written straight into that
+     bucket's rows of the update, and one launch for the hub bucket's
+     virtual rows, whose partial sums are added into their owner rows with
+     ``index_add_``;
+   * walk models (``rwalk``): one launch over every table row, whose
+     neighbours are the row's ``[walk_length]`` walk targets, drawn each
+     iteration by the walk engine (``draw_walks``);
+
+3. repulsion:
+
+   * group-shared negatives (the default): the ``[ng, ns, D]`` samples
+     ``xg[negs]`` and one ``grouped_rep_force`` launch;
+   * per-vertex negatives (``per_vertex_samples``, the CLI's ``-bs 1``):
+     one ``ell_sample_force`` launch over every table row, with its
+     ``[n_pad, ns]`` sample ids, gathered in the kernel;
+
+4. ``X += update`` (or the energy-normalized update), in place.
+
+Padding rows take part as in the JAX package: their update is computed and
+applied, and no edge or sample of a real row reads them.  Everything runs
+in relabeled (degree-sorted) vertex order; ``pad_embedding`` and
+``unpad_embedding`` permute in and out.
 """
 
 from __future__ import annotations
@@ -46,11 +59,39 @@ class DeviceBucket:
     owner_local: Optional[torch.Tensor] = None  # hub: [rows] int64, - start
 
 
+def build_walk_tables(lay: SyncLayout):
+    """(pool, base) int32: the flat neighbour pool (every bucket's ELL
+    rectangle, concatenated) and each relabeled row's offset into it, so a
+    walk step's (vertex, slot) → neighbour lookup is ``pool[base[v] +
+    slot]``.  Exact for hubs too: an owner's virtual rows are consecutive
+    and each holds ``width`` slots, so the pool linearizes the whole CSR
+    row.  The JAX package's ``sync.py::_build_walk_tables``, with a check
+    that the offsets fit int32."""
+    base = np.zeros(lay.n_pad, dtype=np.int64)
+    pools = []
+    off = 0
+    for b in lay.buckets:
+        pools.append(b.nbr.reshape(-1))
+        if b.owners is None:
+            rows = np.arange(b.count, dtype=np.int64)
+            base[b.start + rows] = off + rows * b.width
+        else:
+            # first virtual row per owner (owners' vrows are consecutive)
+            u, idx = np.unique(b.owners, return_index=True)
+            base[u] = off + idx.astype(np.int64) * b.width
+        off += b.nbr.size
+    if off >= 2**31:
+        raise ValueError(f"walk pool of {off} slots does not fit int32 offsets")
+    pool = (np.concatenate(pools) if pools
+            else np.zeros(1, dtype=np.int32)).astype(np.int32)
+    return pool, base.astype(np.int32)
+
+
 class SyncForce2Vec:
     """Train with the epoch-synchronous schedule on ``device``.
 
-    Supports the sampled-repulsion models with a CSR attraction (tdist,
-    sigmoid, fr, linlog, forceatlas) and group-shared negatives.
+    Supports every sampled-repulsion model (tdist, sigmoid, rwalk, fr,
+    linlog, forceatlas), with group-shared or per-vertex negatives.
     """
 
     def __init__(
@@ -69,11 +110,6 @@ class SyncForce2Vec:
         self.model = get_model(config.model, sm_table=config.sm_table)
         if self.model.repulsion == "all":
             raise ValueError("tdist_exact uses the batch trainer, not sync mode")
-        if self.model.attraction == "walk":
-            raise NotImplementedError("walk models are not ported yet")
-        if config.per_vertex_samples:
-            raise NotImplementedError(
-                "per-vertex negatives (-bs 1) are not ported yet")
         self.layout = SyncLayout.build(
             graph, min_width=min_width, hub_width=hub_width,
             row_align=row_align,
@@ -88,7 +124,26 @@ class SyncForce2Vec:
         self.inv_deg = torch.as_tensor(
             1.0 / (lay.deg.astype(np.float64) + 1.0), dtype=self._dtype,
             device=dev)
+        # the per-row launches (walk attraction, per-vertex repulsion) run
+        # over every table row with a constant slot count
+        self._all_rows = torch.arange(lay.n_pad, dtype=torch.int32, device=dev)
+        self._neg_shape = ((lay.n_pad if config.per_vertex_samples
+                            else -(-lay.n_pad // max(config.batch_size, 1))),
+                           config.ns)
+        if config.per_vertex_samples:
+            self._ns_deg = torch.full((lay.n_pad,), config.ns,
+                                      dtype=torch.int32, device=dev)
         self.device_buckets = []
+        if self.model.attraction == "walk":
+            pool, base = build_walk_tables(lay)
+            self.walk_pool = torch.as_tensor(pool, device=dev)
+            # (deg, base) packed as one [n_pad, 2] table, so a walk step
+            # fetches both with one row gather
+            self.walk_db = torch.as_tensor(
+                np.stack([lay.deg.astype(np.int32), base], axis=1), device=dev)
+            self._walk_deg = torch.full((lay.n_pad,), config.walk_length,
+                                        dtype=torch.int32, device=dev)
+            return  # walk attraction reads no bucket
         for bi, b in enumerate(lay.buckets):
             if b.owners is not None:
                 self.device_buckets.append(DeviceBucket(
@@ -147,14 +202,31 @@ class SyncForce2Vec:
         inv = torch.as_tensor(self.layout.inv_perm, device=x.device).long()
         return x[: self.graph.n][inv]
 
+    # -- the walk engine -------------------------------------------------------
+
+    def draw_walks(self, gen: torch.Generator) -> torch.Tensor:
+        """[n_pad, walk_length] int32 uniform walks over the relabeled graph,
+        one from every table row (the JAX package's ``sync.py::_ell_walks``,
+        in plain torch ops on the device).  Each step draws r in
+        [0, 2**31 - 1) from ``gen``, fetches the current rows' (deg, base)
+        with one row gather, and moves to ``pool[base + r % max(deg, 1)]``;
+        rows of degree 0 (and padding rows) stay put."""
+        cur = self._all_rows
+        steps = []
+        for _ in range(self.config.walk_length):
+            r = torch.randint(0, 2**31 - 1, cur.shape, generator=gen,
+                              dtype=torch.int32, device=self.device)
+            db = self.walk_db.index_select(0, cur)
+            d, base = db[:, 0], db[:, 1]
+            nxt = self.walk_pool.index_select(0, base + r % d.clamp(min=1))
+            cur = torch.where(d > 0, nxt, cur)
+            steps.append(cur)
+        return torch.stack(steps, dim=1)
+
     # -- the iteration ---------------------------------------------------------
 
-    def _iteration(self, x: torch.Tensor, negs: torch.Tensor, step: float,
-                   plain: bool) -> torch.Tensor:
-        fk = force_kernels
-        model = self.model
-        xg = x if self._gdt is None else x.to(self._gdt)
-        upd = torch.empty_like(x)
+    def _attraction(self, x, xg, upd, step, plain):
+        fk, model = force_kernels, self.model
         upd[self._zero_from:].zero_()
         for b in self.device_buckets:
             args = (model, x, xg, b.nbr, b.deg, b.xi_row, self.inv_deg, step)
@@ -168,14 +240,40 @@ class SyncForce2Vec:
                 part = (fk.ell_edge_force_plain(*args) if plain
                         else fk.ell_edge_force(*args))
                 upd[b.start: self.layout.n].index_add_(0, b.owner_local, part)
+
+    def _repulsion(self, x, xg, negs, step, plain):
+        fk, model = force_kernels, self.model
+        if self.config.per_vertex_samples:
+            # ns samples of each row's own (-bs 1, the JAX package's
+            # [n_pad, ns] branch, sync.py:604-621)
+            return (fk.ell_sample_force_plain if plain
+                    else fk.ell_sample_force)(model, x, xg, negs,
+                                              self._ns_deg, self._all_rows,
+                                              step)
         # one ns-sample set per batch_size-row group — the reference's
         # option-5 sampling (sample/algorithms.cpp:577-586)
         sg = xg[negs.long()]  # [ng, ns, D]
         group = max(self.config.batch_size, 1)
-        rep = (fk.grouped_rep_force_plain if plain
-               else fk.grouped_rep_force)(model, group, x, sg, step)
-        upd.add_(rep)
-        if model.update == "energy":
+        return (fk.grouped_rep_force_plain if plain
+                else fk.grouped_rep_force)(model, group, x, sg, step)
+
+    def _iteration(self, x: torch.Tensor, negs: torch.Tensor,
+                   walks: Optional[torch.Tensor], step: float,
+                   plain: bool) -> torch.Tensor:
+        xg = x if self._gdt is None else x.to(self._gdt)
+        upd = torch.empty_like(x)
+        if walks is None:
+            self._attraction(x, xg, upd, step, plain)
+        else:
+            fk = force_kernels
+            args = (self.model, x, xg, walks, self._walk_deg, self._all_rows,
+                    self.inv_deg, step)
+            if plain:
+                upd.copy_(fk.ell_edge_force_plain(*args))
+            else:
+                fk.ell_edge_force(*args, out=upd)
+        upd.add_(self._repulsion(x, xg, negs, step, plain))
+        if self.model.update == "energy":
             fnorm = torch.sum(upd * upd, dim=-1, keepdim=True)
             safe = torch.where(fnorm > 0, fnorm, 1.0)
             upd.mul_(torch.where(fnorm > 0, step / torch.sqrt(safe), 0.0))
@@ -191,40 +289,52 @@ class SyncForce2Vec:
     def run_iteration(self, x: torch.Tensor, neg_ids, walks=None,
                       step: Optional[float] = None,
                       plain: bool = False) -> torch.Tensor:
-        """One iteration with injected ``[ng, ns]`` negatives (relabeled
-        ids, one row per ``batch_size``-row group).  Updates ``x`` in place
-        and returns it.
+        """One iteration with injected negatives and, for walk models,
+        injected walks, all relabeled ids.  The negatives are ``[n_pad,
+        ns]``, one set per row, with ``per_vertex_samples``; else ``[ng,
+        ns]``, one set per ``batch_size``-row group.  The walks are
+        ``[n_pad, walk_length]``.  Updates ``x`` in place and returns it;
+        raises on any other shape.
 
         ``plain=True`` computes the same iteration with the plain PyTorch
         versions of the kernels on ``x``'s device: the reference the
         kernels are checked against on the card.
         """
-        if walks is not None:
-            raise NotImplementedError("walk models are not ported yet")
         negs = torch.as_tensor(neg_ids, device=self.device)
-        ng = -(-self.layout.n_pad // max(self.config.batch_size, 1))
-        if tuple(negs.shape) != (ng, self.config.ns):
+        if tuple(negs.shape) != self._neg_shape:
             raise ValueError(
-                f"negatives {tuple(negs.shape)} != {(ng, self.config.ns)}")
-        return self._iteration(x, negs, self.lr if step is None else step,
-                               plain)
+                f"negatives {tuple(negs.shape)} != {self._neg_shape}")
+        is_walk = self.model.attraction == "walk"
+        if (walks is not None) != is_walk:
+            raise ValueError(f"{self.model.name} takes "
+                             f"{'walks' if is_walk else 'no walks'}")
+        if walks is not None:
+            walks = torch.as_tensor(walks, device=self.device)
+            want = (self.layout.n_pad, self.config.walk_length)
+            if tuple(walks.shape) != want:
+                raise ValueError(f"walks {tuple(walks.shape)} != {want}")
+            walks = walks.to(torch.int32).contiguous()
+        return self._iteration(x, negs.to(torch.int32).contiguous(), walks,
+                               self.lr if step is None else step, plain)
 
     def train(self, iters: int = 1200, seed: int = 1,
               x0: Optional[np.ndarray] = None) -> torch.Tensor:
         """Train ``iters`` iterations; returns the [n, D] embedding in
-        original id order, on the device.  The initial X (unless ``x0``) and
-        every iteration's negatives come from one generator seeded with
-        ``seed``: ``[ceil(n_pad / batch_size), ns]`` ids in ``[0, n-1)``,
-        the JAX package's range."""
+        original id order, on the device.  The initial X (unless ``x0``)
+        and every iteration's draws come from one generator seeded with
+        ``seed``: the negatives (``run_iteration``'s shape, ids in
+        ``[0, n-1)``, the JAX package's range), then, for walk models, the
+        walks (``draw_walks``)."""
         gen = self._generator(seed)
         x = self.pad_embedding(x0) if x0 is not None else self._init(gen)
-        lay, cfg = self.layout, self.config
-        ng = -(-lay.n_pad // max(cfg.batch_size, 1))
+        hi = max(self.layout.n - 1, 1)
+        is_walk = self.model.attraction == "walk"
         t0 = time.perf_counter()
         for it in range(iters):
-            negs = torch.randint(0, max(lay.n - 1, 1), (ng, cfg.ns),
-                                 generator=gen, device=self.device)
-            self._iteration(x, negs, self._step(it), plain=False)
+            negs = torch.randint(0, hi, self._neg_shape, generator=gen,
+                                 dtype=torch.int32, device=self.device)
+            walks = self.draw_walks(gen) if is_walk else None
+            self._iteration(x, negs, walks, self._step(it), plain=False)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.last_train_seconds = time.perf_counter() - t0

@@ -1,9 +1,11 @@
 """The kernels' plain versions against the JAX Pallas kernels (interpret
-mode), and the wrappers' input checks.  The CUDA kernels themselves run
+mode: ``ell_force_mxu``, ``ell_force`` of both kinds, ``grouped_rep_force``),
+and the wrappers' input checks.  The CUDA kernels themselves run
 only on the card, where ``chip_smoke.py`` holds them to these plain
 versions (this directory's conftest imports JAX, which the card's host
 lacks)."""
 
+import dataclasses
 import importlib.util
 from pathlib import Path
 
@@ -13,11 +15,13 @@ import pytest
 import torch
 
 from force2vec_tpu.models.forces import get_model as jax_model
-from force2vec_tpu.ops.pallas_force import ell_force_mxu
+from force2vec_tpu.ops.pallas_force import ell_force, ell_force_mxu
 from force2vec_tpu.ops.pallas_force import grouped_rep_force as jax_rep
 from force2vec_tpu_torch.models.forces import get_model
 from force2vec_tpu_torch.ops import _build
 from force2vec_tpu_torch.ops import force_kernels as fk
+from force2vec_tpu_torch import SyncForce2Vec, TrainConfig
+from force2vec_tpu_torch.graphs import synth_powerlaw_graph
 from force2vec_tpu_torch.train.sync import DeviceBucket
 
 C, K, D = 64, 8, 16
@@ -115,6 +119,86 @@ def test_grouped_rep_force_matches_pallas(name, c, group):
                                atol=1e-6)
 
 
+def _ell_inputs(seed, dtype):
+    """A random table, its gather replica and an [C, K] slot table over it,
+    with deg covering 0 and K.  Rows below N_TABLE // 2 never read
+    themselves, as in ``_bucket``."""
+    x, xg, idx, deg, xi_row, invd = _bucket(seed, dtype)
+    deg[:2] = (0, K)
+    return x, xg, idx, deg, xi_row, invd
+
+
+def _jax_ell_force(name, kind, x, xg, idx, deg, xi_row, invd):
+    """ell_force in interpret mode on xj = xg[idx], as sync.py feeds it."""
+    jxg = jnp.asarray(xg.float().numpy()).astype(str(xg.dtype).split(".")[1])
+    xj = jnp.take(jxg, jnp.asarray(idx.reshape(-1)), axis=0).reshape(C, K, D)
+    return np.asarray(ell_force(
+        jax_model(name), kind, jnp.asarray(x[xi_row]), xj, jnp.asarray(deg),
+        jnp.asarray(invd[xi_row]), STEP, interpret=True))
+
+
+@pytest.mark.parametrize("name", SEPARABLE)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ell_sample_force_matches_pallas(name, dtype):
+    x, xg, idx, deg, xi_row, invd = _ell_inputs(14, dtype)
+    got = fk.ell_sample_force_plain(
+        get_model(name), torch.from_numpy(x), xg, torch.from_numpy(idx),
+        torch.from_numpy(deg), torch.from_numpy(xi_row), STEP).numpy()
+    want = _jax_ell_force(name, "sample", x, xg, idx, deg, xi_row, invd)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(got[deg == 0], 0.0)
+
+
+@pytest.mark.parametrize("name", SEPARABLE)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ell_edge_force_matches_elementwise_pallas(name, dtype):
+    """ell_force with kind 'edge' is the function ell_edge_force computes,
+    in the same diff form."""
+    x, xg, idx, deg, xi_row, invd = _ell_inputs(15, dtype)
+    got = _port_edge(name, x, xg, idx, deg, xi_row, invd)
+    want = _jax_ell_force(name, "edge", x, xg, idx, deg, xi_row, invd)
+    # The two sum the same K terms in another order.  fr's and
+    # forceatlas's terms reach ~100 here and can cancel to a sum near 0,
+    # so each element is held to 1e-5 of its own Σ|terms| (chip_smoke.py's
+    # bound) plus 1e-6, which is rtol 1e-5 wherever the terms do not cancel.
+    terms = fk.ell_edge_force_terms(
+        get_model(name), torch.from_numpy(x), xg, torch.from_numpy(idx),
+        torch.from_numpy(deg), torch.from_numpy(xi_row),
+        torch.from_numpy(invd), STEP)
+    scale = terms.abs().sum(dim=1).numpy()
+    assert (np.abs(got - want) <= 1e-5 * scale + 1e-6).all()
+    np.testing.assert_array_equal(got[deg == 0], 0.0)
+
+
+def test_ell_sample_force_writes_into_out_and_rejects_bad_inputs():
+    x, xg, idx, deg, xi_row, _ = _ell_inputs(16, "bfloat16")
+    model = get_model("tdist")
+    t = dict(x=torch.from_numpy(x), xg=xg, idx=torch.from_numpy(idx),
+             deg=torch.from_numpy(deg), xi_row=torch.from_numpy(xi_row))
+
+    def sample(out=None, **over):
+        a = {**t, **over}
+        return fk.ell_sample_force(model, a["x"], a["xg"], a["idx"],
+                                   a["deg"], a["xi_row"], STEP, out=out)
+
+    out = torch.full((C + 4, D), 7.0)
+    got = sample(out=out[2:2 + C])
+    assert got.data_ptr() == out[2].data_ptr()
+    torch.testing.assert_close(
+        out[2:2 + C], fk.ell_sample_force_plain(model, *t.values(), STEP))
+    assert (out[:2] == 7.0).all() and (out[2 + C:] == 7.0).all()
+    for bad in (dict(x=t["x"].double()), dict(idx=t["idx"].long()),
+                dict(xg=xg.half()), dict(deg=t["deg"][:-1]),
+                dict(xi_row=t["xi_row"][:-1]), dict(x=t["x"].t()),
+                dict(xg=xg[:-1]), dict(out=torch.empty(C, D + 1))):
+        with pytest.raises(ValueError):
+            sample(**bad)
+    with pytest.raises(ValueError):  # no sample force kernel for a lambda
+        fk.ell_sample_force(
+            dataclasses.replace(model, sample_force=lambda *a, **k: 0),
+            *t.values(), STEP)
+
+
 def test_wrappers_reject_bad_inputs():
     x, xg, nbr, deg, xi_row, invd = _bucket(11, "bfloat16")
     model = get_model("tdist")
@@ -149,7 +233,12 @@ def test_plain_path_launches_nothing():
     fk.reset_launch_counts()
     x, xg, nbr, deg, xi_row, invd = _bucket(12, "bfloat16")
     _port_edge("tdist", x, xg, nbr, deg, xi_row, invd)
-    assert fk.launch_counts == {"ell_edge_force": 0, "grouped_rep_force": 0}
+    x, xg, idx, deg, xi_row, _ = _ell_inputs(12, "bfloat16")
+    fk.ell_sample_force(get_model("tdist"), torch.from_numpy(x), xg,
+                        torch.from_numpy(idx), torch.from_numpy(deg),
+                        torch.from_numpy(xi_row), STEP)
+    assert fk.launch_counts == {"ell_edge_force": 0, "grouped_rep_force": 0,
+                                "ell_sample_force": 0}
 
 
 def test_build_names_library_by_source_hash(monkeypatch, tmp_path):
@@ -157,7 +246,7 @@ def test_build_names_library_by_source_hash(monkeypatch, tmp_path):
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libf2v_kernels_") and path.suffix == ".so"
     assert {p.name for p in _build.sources()} == {
-        "ell_edge_force.cu", "grouped_rep_force.cu"}
+        "ell_edge_force.cu", "grouped_rep_force.cu", "ell_sample_force.cu"}
     # an edited source gets another library
     src = tmp_path / "csrc"
     src.mkdir()
@@ -213,6 +302,63 @@ def test_smoke_bound_passes_plain_and_rejects_planted_faults():
     rep_ratio, edge_ratio = smoke.planted_fault_ratios(
         model, group, x, xg, b, invd, sg, STEP)
     assert rep_ratio > 1.0 and edge_ratio > 1.0
+
+
+def test_smoke_sample_bound_rejects_planted_faults():
+    """The same bound on ell_sample_force's CPU wrapper: the true output
+    passes, x_i from the bf16 replica and a skipped last sample fail."""
+    smoke = _chip_smoke()
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(
+        rng.uniform(-1, 1, (N_TABLE, D)).astype(np.float32))
+    xg = x.bfloat16()
+    idx = torch.from_numpy(rng.integers(0, N_TABLE, (N_TABLE, 5)).astype(
+        np.int32))
+    deg = torch.full((N_TABLE,), 5, dtype=torch.int32)
+    rows = torch.arange(N_TABLE, dtype=torch.int32)
+    model = get_model("tdist")
+    got = fk.ell_sample_force(model, x, xg, idx, deg, rows, STEP)
+    assert smoke.bound_ratio(got, fk.ell_sample_force_terms(
+        model, x, xg, idx, deg, rows, STEP)) == 0.0
+    bf16_xi, skip_last = smoke.sample_planted_fault_ratios(
+        model, x, xg, idx, deg, rows, STEP)
+    assert bf16_xi > 1.0 and skip_last > 1.0
+
+
+def test_smoke_work_counts_each_byte_once():
+    smoke = _chip_smoke()
+    x = torch.zeros((6, D))
+    xg = x.bfloat16()
+    idx = torch.tensor([[1, 2, 9], [3, 1, 9]], dtype=torch.int32)
+    deg = torch.tensor([2, 2], dtype=torch.int32)
+    rows = torch.tensor([0, 0], dtype=torch.int32)
+    nbytes, terms = smoke.ell_work([(idx, deg, rows)], x, xg, True)
+    # x_0 and invd_0 once, replica rows 1, 2, 3 once (slot 2 is padding),
+    # 4 real ids, deg and xi_row of 2 rows, 2 output rows
+    assert terms == 4
+    assert nbytes == D * 4 + 4 + 3 * D * 2 + 4 * 4 + 2 * 8 + 2 * D * 4
+    ms, by = smoke.bound_ms(3.35e9, 1.0)
+    assert by == "bytes" and abs(ms - 1.0) < 1e-12
+    assert smoke.bound_ms(1.0, 67e9) == (1.0, "operations")
+
+
+def test_smoke_walk_check_passes_walks_and_rejects_faults():
+    smoke = _chip_smoke()
+    g = synth_powerlaw_graph(n=16384, avg_deg=16, seed=5)
+    fv = SyncForce2Vec(g, TrainConfig(dim=D, model="rwalk", ns=5,
+                                      walk_length=1),
+                       min_width=8, hub_width=64, device="cpu")
+    walks = fv.draw_walks(torch.Generator().manual_seed(1))
+    moved, share, expect = smoke.check_walks(fv, walks)
+    assert moved == int((fv.layout.deg > 0).sum())
+    rows = torch.arange(fv.layout.n_pad, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="neighbour"):  # no self loops
+        smoke.check_walks(fv, rows[:, None].clone())
+    # every step on slot 0 of its row
+    slot0 = torch.where(fv.walk_db[:, 0] > 0,
+                        fv.walk_pool[fv.walk_db[:, 1].long()], rows)
+    with pytest.raises(RuntimeError, match="slot-0"):
+        smoke.check_walks(fv, slot0[:, None].clone())
 
 
 def test_smoke_ptxas_summary_names_each_instance():
