@@ -5,7 +5,8 @@
 Drives ``force2vec_tpu_torch``'s three sync paths at full width, on
 ``bench.py``'s graph (131,072-vertex power-law graph, 2,097,122 edges) with
 its configuration (dim 128, ns 5, bf16 gathers, min_width 8,
-hub_width 128):
+hub_width 128), and the benchmark probes (``tools/probes.py``) at the
+shapes the JAX tools ran:
 
 1. checks for a card and prints its name and power limit;
 2. builds the CUDA kernels from ``force2vec_tpu_torch/ops/csrc`` with nvcc;
@@ -35,7 +36,17 @@ path B, ``rwalk`` (``-option 7``, walk length 5, group-shared negatives):
 9. 50 training iterations with exact launch counts, X finite, and edges
    with a larger mean dot product than random pairs;
 10. at the trained X, holds the walk attraction launch against its plain
-    version, and runs one iteration with injected walks both ways, timed.
+    version, and runs one iteration with injected walks both ways, timed;
+
+path C, the probes (``python3 -m force2vec_tpu_torch.tools.probes``):
+
+11. runs the four experiments (vmem_take, sweepvar, dg, sweepfloor) with
+    exact launch counts, and checks the take-group shape and each parity
+    field;
+12. holds ``take_sum``, ``tile_force_tc``, ``resident_gather`` and
+    ``read_sum`` against their plain versions at the probes' shapes (each
+    with its stated bound), shows that each bound rejects a planted fault,
+    and times kernel, plain version and library call.
 
 The quality margins are half of what the JAX package reaches on the CPU
 with the same graph, configuration and iteration count
@@ -52,12 +63,14 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from force2vec_tpu_torch.graphs import synth_powerlaw_graph
 from force2vec_tpu_torch.models.forces import MAXBOUND, get_model
 from force2vec_tpu_torch.ops import _build, force_kernels as fk
+from force2vec_tpu_torch.ops import probe_kernels as pk
 from force2vec_tpu_torch.tools import (BENCH_CONFIG, HUB_WIDTH, MIN_WIDTH,
-                                      card_name_and_power, cuda_ms,
+                                      card_name_and_power, cuda_ms, probes,
                                       queued_device_ms)
 from force2vec_tpu_torch.train.sync import DeviceBucket, SyncForce2Vec
 
@@ -76,6 +89,15 @@ TRAIN_ITERS = 50
 EDGE_TOL = 1e-4
 REP_TOL = 1e-5
 SUM_RTOL = 1e-5
+# tile_force_tc rounds each squared difference to TF32 (2^-11 of itself),
+# which moves each term by at most 2^-11 of itself
+# (csrc/tile_force_tc.cu): the same bound, widened by that much.
+TC_RTOL = SUM_RTOL + 2.0**-11
+# read_sum is held to a float64 sum of the same tile: a sum whose every
+# term passes through at most n f32 additions is off by at most
+# γ_n = n·u/(1 − n·u) of Σ|terms|, u = 2^-24, and read_sum_plan counts n
+# for the kernel's blocks (284 for a take group of 64,368 rows).
+F32_UNIT = 2.0**-24
 ITER_TOL = 1e-3  # bench.py's on-chip kernel-vs-plain bound
 # Quality after 50 iterations: half of what the JAX package reaches on the
 # CPU with the same configuration, graph and pair sample
@@ -102,6 +124,22 @@ SAMPLE_SOURCE = "force2vec_tpu_torch/ops/csrc/ell_sample_force.cu"
 EDGE_REPLACES = "force2vec_tpu/ops/pallas_force.py:218"
 REP_REPLACES = "force2vec_tpu/ops/pallas_force.py:103"
 SAMPLE_REPLACES = "force2vec_tpu/ops/pallas_force.py:264"
+PROBES = {  # kernel: (source, TPU function it replaces)
+    "take_sum": ("force2vec_tpu_torch/ops/csrc/take_sum.cu",
+                 "benchmarks/exp_r3.py:146"),
+    "tile_force_tc": ("force2vec_tpu_torch/ops/csrc/tile_force_tc.cu",
+                      "benchmarks/exp_r3.py:638"),
+    "resident_gather": ("force2vec_tpu_torch/ops/csrc/resident_gather.cu",
+                        "benchmarks/exp_r4.py:127"),
+    "read_sum": ("force2vec_tpu_torch/ops/csrc/read_sum.cu",
+                 "benchmarks/exp_r4.py:470"),
+}
+# every __global__ function in ops/csrc, each of which must show in the
+# ptxas report
+CUDA_KERNELS = ("ell_edge_force_kernel", "grouped_rep_force_kernel",
+                "ell_sample_force_kernel", "take_sum_kernel",
+                "tile_force_tc_kernel", "resident_gather_kernel",
+                "read_sum_partial_kernel", "read_sum_final_kernel")
 
 
 def check(cond, msg):
@@ -115,15 +153,18 @@ def say(*args):
 
 def ptxas_summary(log: str) -> list:
     """One line per kernel instance from nvcc's ``-Xptxas=-v`` output:
-    ``kernel<replica, lanes' elements, model>: registers; spills``."""
+    ``kernel<template arguments>: registers; spills``, e.g.
+    ``ell_edge_force_kernel<bf16, 4, 0>`` (replica, lanes' elements,
+    model) or ``resident_gather_kernel<16>``."""
     lines, name, spill = [], None, ""
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?\d([a-z_]+_kernel)I(\w+?)EEEv",
+        m = re.search(r"Compiling entry function '\S*?\d([a-z_]+_kernel)I(\w+?)EEv",
                       line)
         if m:
             args = re.sub(r"Li(\d+)E?", r", \1", m[2])
             args = args.replace("13__nv_bfloat16", "bf16")
-            name, spill = f"{m[1]}<{re.sub('^f,', 'f32,', args)}>", ""
+            args = re.sub(r"^f(?=,|$)", "f32", args).lstrip(", ")
+            name, spill = f"{m[1]}<{args}>", ""
         elif "spill stores" in line:
             spill = line.strip()
         elif name and "registers" in line:
@@ -136,12 +177,12 @@ def max_err(a, b) -> float:
     return float((a - b).abs().max())
 
 
-def bound_ratio(got, terms) -> float:
-    """max over elements of |got - Σ terms| / (SUM_RTOL · Σ |terms|), the
-    sums over dim 1; at most 1 passes.  An element whose terms are all 0
-    gives inf unless ``got`` is exactly 0 there."""
+def bound_ratio(got, terms, rtol: float = SUM_RTOL) -> float:
+    """max over elements of |got - Σ terms| / (rtol · Σ |terms|), the sums
+    over dim 1; at most 1 passes.  An element whose terms are all 0 gives
+    inf unless ``got`` is exactly 0 there."""
     err = (got - terms.sum(dim=1)).abs()
-    scale = SUM_RTOL * terms.abs().sum(dim=1)
+    scale = rtol * terms.abs().sum(dim=1)
     return float(torch.where(err == 0, 0.0, err / scale).max())
 
 
@@ -379,11 +420,13 @@ def iteration_phase(fv, x0, card, negs, walks=None):
 
 def train_phase(fv, expect, card):
     """``train()`` for TRAIN_ITERS iterations with the launch counts set to
-    0 just before; checks the counts equal ``expect`` and that X is finite.
-    Returns the [n, D] embedding and the counts."""
-    fk.reset_launch_counts()
+    0 just before; checks the counts equal ``expect`` (the probe kernels
+    0) and that X is finite.  Returns the [n, D] embedding and the
+    counts."""
+    reset_counts()
     emb = fv.train(iters=TRAIN_ITERS, seed=1)
-    counts = dict(fk.launch_counts)
+    counts = read_counts()
+    expect = {**{k: 0 for k in pk.launch_counts}, **expect}
     train_ms = fv.last_train_seconds * 1e3 / TRAIN_ITERS
     say(f"train {TRAIN_ITERS} iterations: {fv.last_train_seconds:.3f} s, "
         f"{train_ms:.4f} ms/iteration (host clock), launches {counts} "
@@ -393,6 +436,16 @@ def train_phase(fv, expect, card):
           f"embedding shape {tuple(emb.shape)}")
     check(bool(torch.isfinite(emb).all()), "trained X is not finite")
     return emb, counts
+
+
+def reset_counts():
+    fk.reset_launch_counts()
+    pk.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    """Every kernel's launch count: the force kernels' and the probes'."""
+    return {**fk.launch_counts, **pk.launch_counts}
 
 
 def quality(graph, emb):
@@ -622,6 +675,212 @@ def rwalk_path(graph, dev, card):
     return counts
 
 
+# -- path C: the benchmark probes ---------------------------------------------------
+
+
+def probes_path(graph, dev, card, edge_launches):
+    """``tools.probes``' four experiments at their full shapes, with exact
+    launch counts: each kernel timing is WARMUP + REPS launches (and
+    QUEUED_REPS more for the loops: the sweeps and the 40 take groups),
+    after one parity launch per case (``take_sum``: 2 dtypes;
+    ``resident_gather``: 2 dtypes × 3 H; ``read_sum``: each take group,
+    then the whole tile) or per sweep (``ell_edge_force`` and
+    ``tile_force_tc``: the mxu_parity bucket)."""
+    reset_counts()
+    recs = (probes.exp_vmem_take(dev) + probes.exp_sweepvar(graph, dev)
+            + probes.exp_dg(dev) + probes.exp_sweepfloor(graph, dev))
+    counts = read_counts()
+    for r in recs:
+        say(f"probe {json.dumps(r)} [{card}]")
+    floor = [r for r in recs if r["exp"] == "sweepfloor"]
+    shape = (floor[0]["rows_per_group"], floor[0]["groups"],
+             floor[0]["t_rows"])
+    check(shape == (64368, 40, 4023), f"take groups {shape} != the JAX "
+                                      "package's (64368, 40, 4023)")
+    timed = probes.WARMUP + probes.REPS
+    looped = timed + probes.QUEUED_REPS
+    expect = {"ell_edge_force": edge_launches * looped + 1,
+              "grouped_rep_force": 0, "ell_sample_force": 0,
+              "take_sum": 2 * (1 + timed), "resident_gather": 6 * (1 + timed),
+              "read_sum": shape[1] * (1 + looped) + 1 + timed,
+              "tile_force_tc": edge_launches * looped + 1}
+    say(f"probes path launches {counts} [{card}]")
+    check(counts == expect, f"probe launch counts {counts} != {expect}")
+    check(all(r["exact"] for r in recs if r["exp"] == "dg"),
+          "resident_gather differs from its plain version")
+    errs = [r.get("max_abs_err", r.get("max_err")) for r in recs]
+    check(all(np.isfinite(e) for e in errs if e is not None),
+          "a probe's parity error is not finite")
+    return counts
+
+
+def take_sum_phase(dev, card):
+    """``take_sum`` against its plain terms at exp_vmem_take's shapes, for
+    both table dtypes, to SUM_RTOL·Σ|terms| (only the order of 16 f32
+    additions differs); the bound must reject skipping the last of the K
+    rows.  Times the bf16 case for the kernels line."""
+    res = {}
+    for dt in (torch.bfloat16, torch.float32):
+        tbl, idx = probes.take_sum_inputs(dev, dt)
+        got = pk.take_sum(tbl, idx)
+        terms = pk.take_sum_terms(tbl, idx)
+        e, ratio = max_err(got, terms.sum(dim=1)), bound_ratio(got, terms)
+        skip = bound_ratio(got, pk.take_sum_terms(tbl, idx[:, :-1]))
+        del terms
+        check(ratio <= 1.0, f"take_sum {dt}: |err| exceeds {SUM_RTOL} x "
+                            f"sum |terms| by {ratio:.3f}x")
+        check(skip > 1.0, "the bound passed a take_sum that skips the last "
+                          "of K rows")
+        km = cuda_ms(lambda: pk.take_sum(tbl, idx))
+        pm = cuda_ms(lambda: pk.take_sum_plain(tbl, idx), reps=3)
+        lm = cuda_ms(lambda: F.embedding_bag(idx, tbl, mode="sum"))
+        (c, k), dim = idx.shape, tbl.shape[1]
+        nbytes = (idx.unique().numel() * dim * tbl.element_size()
+                  + idx.numel() * 4 + c * dim * 4)
+        b_ms, by = bound_ms(nbytes, c * k * dim)
+        say(f"take_sum {dt} [{c}, {k}] of [{tbl.shape[0]}, {dim}]: "
+            f"max_abs_err={e:.3e} bound_ratio={ratio:.4f}; last row skipped "
+            f"bound_ratio={skip:.2f} (must be > 1); kernel_ms={km:.4f} "
+            f"plain_ms={pm:.4f} library_ms={lm:.4f} (embedding_bag, "
+            f"{dt} out) bound_ms={b_ms:.4f} ({by}: {nbytes / 1e6:.1f} MB); "
+            f"{c * k / km / 1e3:.1f} M rows/s [{card}]")
+        res.setdefault("max_abs_err", 0.0)
+        res["max_abs_err"] = max(res["max_abs_err"], e)
+        if dt == torch.bfloat16:
+            res.update(ms=km, plain_ms=pm, library_ms=lm, bound_ms=b_ms,
+                       bound_by=by)
+    return res
+
+
+def resident_gather_phase(dev, card):
+    """``resident_gather`` at exp_dg's H = 2048 (its largest output), both
+    dtypes: bit for bit equal to its plain version, and unequal to a
+    gather whose ids are off by one.  Times the bf16 case."""
+    res = {"max_abs_err": 0.0}
+    for dt in (torch.bfloat16, torch.float32):
+        tbl, idx = probes.dg_inputs(dev, dt, 2048)
+        (h, dim), m = tbl.shape, idx.shape[0]
+        got = torch.empty((m, dim), dtype=dt, device=dev)
+        pk.resident_gather(tbl, idx, out=got)
+        check(torch.equal(got, pk.resident_gather_plain(tbl, idx)),
+              f"resident_gather {dt} differs from its plain version")
+        off = int((got != pk.resident_gather_plain(tbl, (idx + 1) % h))
+                  .any(dim=1).sum())
+        check(off > 0, "the check passed a gather with ids off by one")
+        km = cuda_ms(lambda: pk.resident_gather(tbl, idx, out=got))
+        pm = cuda_ms(lambda: pk.resident_gather_plain(tbl, idx), reps=3)
+        lib = torch.empty_like(got)
+        lm = cuda_ms(lambda: torch.index_select(tbl, 0, idx, out=lib))
+        row = dim * tbl.element_size()
+        nbytes = idx.unique().numel() * row + m * 4 + m * row
+        b_ms, by = bound_ms(nbytes, 0)
+        say(f"resident_gather {dt} {m} rows of [{h}, {dim}]: bit-exact; ids "
+            f"off by one: {off} rows differ; kernel_ms={km:.4f} "
+            f"plain_ms={pm:.4f} library_ms={lm:.4f} (index_select) "
+            f"bound_ms={b_ms:.4f} ({by}: {nbytes / 1e6:.1f} MB); "
+            f"{m / km / 1e3:.1f} M rows/s [{card}]")
+        if dt == torch.bfloat16:
+            res.update(ms=km, plain_ms=pm, library_ms=lm, bound_ms=b_ms,
+                       bound_by=by)
+        del got, lib
+    return res
+
+
+def read_sum_phase(graph, dev, card):
+    """``read_sum`` over exp_sweepfloor's 40 take groups, each against a
+    float64 sum of the same tile to γ_n·Σ|terms| per column (n from
+    ``read_sum_plan``); for every group the bound must reject a sum that
+    skips the last tile row.  Times the 40-launch loop, which streams the
+    659 MB from HBM, and one group repeated (16.5 MB, warm in L2)."""
+    tiles, _, _ = probes.sweepfloor_tiles(graph, dev)
+    groups, t_rows, k, dim = tiles.shape
+    _, _, adds = pk.read_sum_plan(t_rows * k, tiles.dtype)
+    gamma = adds * F32_UNIT / (1 - adds * F32_UNIT)
+    e, ratio, skip = 0.0, 0.0, float("inf")
+    for t in tiles:
+        got = pk.read_sum(t)[0].double()
+        x = t.double().reshape(-1, dim)
+        scale = gamma * x.abs().sum(dim=0)
+        err = (got - x.sum(dim=0)).abs()
+        e = max(e, float(err.max()))
+        ratio = max(ratio, float(torch.where(err == 0, 0.0, err / scale).max()))
+        skip = min(skip, float(((got - x[:-k].sum(dim=0)).abs() / scale).max()))
+    check(ratio <= 1.0, f"read_sum: |err| exceeds gamma_{adds} x sum |terms| "
+                        f"by {ratio:.3f}x")
+    check(skip > 1.0, "the bound passed a read_sum that skips the last tile "
+                      "row")
+    def kernel():
+        for t in tiles:
+            pk.read_sum(t)
+
+    def library():
+        for t in tiles:
+            t.sum((0, 1), dtype=torch.float32)
+
+    km, qm = cuda_ms(kernel), queued_device_ms(kernel, reps=5)
+    pm = cuda_ms(lambda: [pk.read_sum_plain(t) for t in tiles], reps=3)
+    lm, lqm = cuda_ms(library), queued_device_ms(library, reps=5)
+    one_ms = queued_device_ms(lambda: pk.read_sum(tiles[0]), reps=100)
+    nbytes = tiles.numel() * tiles.element_size() + groups * dim * 4
+    b_ms, by = bound_ms(nbytes, tiles.numel())
+    say(f"read_sum {groups} groups of [{t_rows}, {k}, {dim}] bf16: "
+        f"max_abs_err={e:.3e} bound_ratio={ratio:.4f} (gamma_{adds}="
+        f"{gamma:.3e} x sum |terms|); last tile row skipped bound_ratio >= "
+        f"{skip:.2f} (must be > 1); kernel_ms={km:.4f} queued={qm:.4f} "
+        f"({nbytes / qm / 1e6:.1f} GB/s) plain_ms={pm:.4f} library_ms="
+        f"{lm:.4f} queued={lqm:.4f} (sum, f32) bound_ms={b_ms:.4f} ({by}: "
+        f"{nbytes / 1e6:.1f} MB); one group repeated, queued (L2-warm): "
+        f"{one_ms:.4f} ms, {nbytes / groups / one_ms / 1e6:.1f} GB/s "
+        f"[{card}]")
+    return dict(max_abs_err=e, ms=km, queued_ms=qm, plain_ms=pm,
+                library_ms=lm, bound_ms=b_ms, bound_by=by)
+
+
+def tile_force_tc_phase(graph, dev, card):
+    """``tile_force_tc`` over the bench layout's 13 materialised bucket
+    tiles, each against its plain terms to TC_RTOL·Σ|terms|; for every
+    bucket the bound must reject skipping the last slot.  Times the 13
+    launches on the tiles (the gather that made them not included)."""
+    fv, _, xg, xis = probes.sweep_setup(graph, dev)
+    step = probes.STEP
+    work = [(xi, xg[b.nbr.long()], b.deg)
+            for b, xi in zip(fv.device_buckets, xis)]
+    e, ratio, skip = 0.0, 0.0, float("inf")
+    for xi, xj, deg in work:
+        got = pk.tile_force_tc(xi, xj, deg, step)
+        terms = pk.tile_force_tc_terms(xi, xj, deg, step)
+        e = max(e, max_err(got, terms.sum(dim=1)))
+        ratio = max(ratio, bound_ratio(got, terms, TC_RTOL))
+        del terms
+        skip = min(skip, bound_ratio(got, pk.tile_force_tc_terms(
+            xi, xj, (deg - 1).clamp(min=0), step), TC_RTOL))
+    check(ratio <= 1.0, f"tile_force_tc: |err| exceeds {TC_RTOL:.3e} x sum "
+                        f"|terms| by {ratio:.3f}x")
+    check(skip > 1.0, "the bound passed a tile_force_tc that skips the last "
+                      "slot")
+    def kernel():
+        for w in work:
+            pk.tile_force_tc(*w, step)
+
+    km, qm = cuda_ms(kernel), queued_device_ms(kernel, reps=5)
+    pm = cuda_ms(lambda: [pk.tile_force_tc_plain(*w, step) for w in work],
+                 reps=3)
+    slots = sum(int(deg.sum()) for _, _, deg in work)
+    rows = sum(xi.shape[0] for xi, _, _ in work)
+    dim = xg.shape[1]
+    nbytes = slots * dim * xg.element_size() + rows * (2 * dim * 4 + 4)
+    # per real slot and value: sub, square, coefficient mul, 2 clamps,
+    # step mul, add (the tensor cores' 2·dim per slot are < 1% at 495 TF/s)
+    b_ms, by = bound_ms(nbytes, slots * 7 * dim)
+    say(f"tile_force_tc {len(work)} buckets, {rows} rows, {slots} real "
+        f"slots: max_abs_err={e:.3e} bound_ratio={ratio:.4f} ({TC_RTOL:.3e} "
+        f"x sum |terms|); last slot skipped bound_ratio >= {skip:.2f} (must "
+        f"be > 1); kernel_ms={km:.4f} queued={qm:.4f} plain_ms={pm:.4f} "
+        f"bound_ms={b_ms:.4f} ({by}: {nbytes / 1e6:.1f} MB) [{card}]")
+    return dict(max_abs_err=e, ms=km, queued_ms=qm, plain_ms=pm,
+                library_ms=None, bound_ms=b_ms, bound_by=by)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check needs the card",
@@ -639,8 +898,12 @@ def main() -> int:
     lib_path = _build.build()
     _build.load_library()
     say(f"build: {time.perf_counter() - t0:.2f} s -> {lib_path.name}")
-    for line in ptxas_summary(lib_path.with_suffix(".log").read_text()):
+    ptxas = ptxas_summary(lib_path.with_suffix(".log").read_text())
+    for line in ptxas:
         say(f"  ptxas: {line}")
+    missing = [k for k in CUDA_KERNELS
+               if not any(line.startswith(k + "<") for line in ptxas)]
+    check(not missing, f"kernels missing from the ptxas report: {missing}")
 
     graph = synth_powerlaw_graph()
     t0 = time.perf_counter()
@@ -652,21 +915,28 @@ def main() -> int:
     t0 = time.perf_counter()
     counts_rw = rwalk_path(graph, dev, card)
     say(f"path B (rwalk): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts_probes = probes_path(graph, dev, card, edge_launches)
+    measured = {"take_sum": take_sum_phase(dev, card),
+                "tile_force_tc": tile_force_tc_phase(graph, dev, card),
+                "resident_gather": resident_gather_phase(dev, card),
+                "read_sum": read_sum_phase(graph, dev, card)}
+    say(f"path C (probes): {time.perf_counter() - t0:.1f} s")
 
     paths = {"main": counts_main, "per_vertex": counts_pv,
-             "rwalk": counts_rw}
+             "rwalk": counts_rw, "probes": counts_probes}
 
     def entry(name, source, replaces, measured):
         by_path = {p: c[name] for p, c in paths.items()}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
-                "launches_by_path": by_path, **measured, "library_ms": None}
+                "launches_by_path": by_path, "library_ms": None, **measured}
 
     say(json.dumps({"kernels": [
         entry("ell_edge_force", EDGE_SOURCE, EDGE_REPLACES, edge),
         entry("grouped_rep_force", REP_SOURCE, REP_REPLACES, rep),
         entry("ell_sample_force", SAMPLE_SOURCE, SAMPLE_REPLACES, sample),
-    ]}))
+    ] + [entry(name, *PROBES[name], m) for name, m in measured.items()]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -43,6 +43,16 @@ _SIGNATURES = {
     # model, stream
     "f2v_ell_sample_force": (_P, _P, _I, _P, _P, _P, _F, _P, _I, _I, _I, _I,
                              _P),
+    # the benchmark probes (probe_kernels.py)
+    # tbl, tbl_is_bf16, idx, out, rows, k, dim, stream
+    "f2v_take_sum": (_P, _I, _P, _P, _I, _I, _I, _P),
+    # tbl, idx, out, rows, row_bytes, stream
+    "f2v_resident_gather": (_P, _P, _P, _I, _I, _P),
+    # tile, tile_is_bf16, partial, out, rows, dim, blocks, rows_per_block,
+    # stream
+    "f2v_read_sum": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
+    # xi, xj, xj_is_bf16, deg, step, out, rows, width, dim, stream
+    "f2v_tile_force_tc": (_P, _P, _I, _P, _F, _P, _I, _I, _I, _P),
 }
 
 

@@ -246,7 +246,9 @@ def test_build_names_library_by_source_hash(monkeypatch, tmp_path):
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libf2v_kernels_") and path.suffix == ".so"
     assert {p.name for p in _build.sources()} == {
-        "ell_edge_force.cu", "grouped_rep_force.cu", "ell_sample_force.cu"}
+        "ell_edge_force.cu", "grouped_rep_force.cu", "ell_sample_force.cu",
+        "take_sum.cu", "tile_force_tc.cu", "resident_gather.cu",
+        "read_sum.cu"}
     # an edited source gets another library
     src = tmp_path / "csrc"
     src.mkdir()

@@ -298,14 +298,17 @@ def test_unported_options_raise(graph):
 
 
 def test_package_imports_no_jax():
+    """Every module of the port, found by walking the package, and
+    chip_smoke.py import neither JAX nor the JAX package."""
     code = (
-        "import sys\n"
-        "import force2vec_tpu_torch\n"
-        "import force2vec_tpu_torch.convert, force2vec_tpu_torch.graphs\n"
-        "import force2vec_tpu_torch.ops.force_kernels\n"
-        "import force2vec_tpu_torch.train.sync\n"
-        "import force2vec_tpu_torch.tools.profile_iter\n"
-        "import chip_smoke\n"
+        "import importlib, pkgutil, sys\n"
+        "import force2vec_tpu_torch as pkg\n"
+        "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__,\n"
+        "                                              pkg.__name__ + '.')]\n"
+        "for name in mods + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        "assert 'force2vec_tpu_torch.ops.probe_kernels' in mods, mods\n"
+        "assert 'force2vec_tpu_torch.tools.probes' in mods, mods\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'force2vec_tpu')]\n"
         "assert not bad, bad\n"
