@@ -9,25 +9,33 @@ hub_width 128), and the benchmark probes (``tools/probes.py``) at the
 shapes the JAX tools ran:
 
 1. checks for a card and prints its name and power limit;
-2. builds the CUDA kernels from ``force2vec_tpu_torch/ops/csrc`` with nvcc;
+2. builds the CUDA kernels from ``force2vec_tpu_torch/ops/csrc`` with nvcc
+   and checks that the main path's instances spill nothing;
 
 the main path, tdist with 256-row group-shared negatives (``-option 5``):
 
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes the path gives it, elementwise and for every separable model, and
-   times both; then shows that the same bound rejects two planted faults;
+   times both: ``ell_edge_force`` as the path runs it, one launch over the
+   layout's work table (every bucket, the hub included), back to back and
+   queued ahead of the device, beside its per-bucket launches; then shows
+   that the same bound rejects four planted faults;
 4. runs one iteration through the kernels and through the plain versions
    from the same X and negatives, and times both;
-5. trains 50 iterations through the kernels, checks the launch counts, that
-   X is finite, and that edges end closer than random pairs;
+5. trains 50 iterations through the kernels, checks the launch counts (one
+   edge launch per iteration), that X is finite, and that edges end closer
+   than random pairs;
 
 path A, tdist with per-vertex negatives (``-option 5 -bs 1``):
 
 6. holds ``ell_sample_force`` against its plain version at ``[n_pad, ns]``
-   for the tdist, sigmoid and layout sample forces, times it, and shows
-   that the bound rejects two planted faults;
-7. one iteration both ways, timed; 50 training iterations with exact
-   launch counts, X finite, edges closer than random pairs;
+   for the tdist, sigmoid and layout sample forces, shows that adding into
+   ``out`` (``accumulate=True``, as the path runs it) equals ``out.add_``
+   of its result bit for bit, times it, and shows that the bound rejects
+   two planted faults;
+7. one iteration both ways, timed, with one ``add_`` (X += update) and no
+   other; 50 training iterations with exact launch counts, X finite, edges
+   closer than random pairs;
 
 path B, ``rwalk`` (``-option 7``, walk length 5, group-shared negatives):
 
@@ -140,6 +148,11 @@ CUDA_KERNELS = ("ell_edge_force_kernel", "grouped_rep_force_kernel",
                 "ell_sample_force_kernel", "take_sum_kernel",
                 "tile_force_tc_kernel", "resident_gather_kernel",
                 "read_sum_partial_kernel", "read_sum_final_kernel")
+# the instances the main path and path A run (bf16 replica, tdist), which
+# must spill nothing
+MAIN_INSTANCES = ("ell_edge_force_kernel<bf16, 0>",
+                  "ell_sample_force_kernel<bf16, 0>",
+                  "grouped_rep_force_kernel<bf16, 4, 0>")
 
 
 def check(cond, msg):
@@ -154,8 +167,8 @@ def say(*args):
 def ptxas_summary(log: str) -> list:
     """One line per kernel instance from nvcc's ``-Xptxas=-v`` output:
     ``kernel<template arguments>: registers; spills``, e.g.
-    ``ell_edge_force_kernel<bf16, 4, 0>`` (replica, lanes' elements,
-    model) or ``resident_gather_kernel<16>``."""
+    ``ell_edge_force_kernel<bf16, 0>`` (replica, model) or
+    ``resident_gather_kernel<16>``."""
     lines, name, spill = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?\d([a-z_]+_kernel)I(\w+?)EEv",
@@ -198,12 +211,13 @@ def term_flops(model, kind: str, dim: int) -> int:
     return (8, 4, 5)[fk._SAMPLE_MODEL_IDS[model.sample_force]] * dim
 
 
-def ell_work(launches, x, xg, with_invd: bool):
+def ell_work(launches, x, xg, with_invd: bool, reads_out: bool = False):
     """(bytes, terms) that ``ell_edge_force`` or ``ell_sample_force`` over
     the launches ``(idx, deg, xi_row)`` must move and compute: each input
     read once (the x and replica rows they touch, the real slots' ids, deg,
-    xi_row and, for the edge force, invd) and each output row written once.
-    Slots past deg are skipped, so they count nothing."""
+    xi_row, for the edge force invd and, adding into ``out``, the output
+    rows) and each output row written once.  Slots past deg are skipped,
+    so they count nothing."""
     dim = x.shape[1]
     xi = torch.cat([r for _, _, r in launches]).unique().numel()
     real = torch.cat([
@@ -212,7 +226,8 @@ def ell_work(launches, x, xg, with_invd: bool):
     rows = sum(r.numel() for _, _, r in launches)
     nbytes = (xi * dim * 4 + (xi * 4 if with_invd else 0)
               + real.unique().numel() * dim * xg.element_size()
-              + real.numel() * 4 + rows * 8 + rows * dim * 4)
+              + real.numel() * 4 + rows * 8
+              + rows * dim * 4 * (2 if reads_out else 1))
     return nbytes, real.numel()
 
 
@@ -272,9 +287,30 @@ def check_sample(model, x, xg, idx, deg, rows, step, what):
     return e, ratio
 
 
+def check_table(model, x, xg, table, invd, step, what):
+    """One ``ell_edge_force_table`` launch against the per-entry plain
+    terms, over every entry (each bucket, the hub's virtual rows, and the
+    width-0 entry, whose rows must be exactly 0); returns (max |err|,
+    bound ratio)."""
+    got = fk.ell_edge_force_table(model, x, xg, table, invd, step)
+    err = ratio = 0.0
+    for nbr, deg, xi_row, ob in table.parts():
+        terms = fk.ell_edge_force_terms(model, x, xg, nbr, deg, xi_row, invd,
+                                        step)
+        part = got[ob: ob + nbr.shape[0]]
+        err = max(err, max_err(part, terms.sum(dim=1)))
+        ratio = max(ratio, bound_ratio(part, terms))
+        del terms
+    check(ratio <= 1.0, f"ell_edge_force_table {what}: |err| exceeds "
+                        f"{SUM_RTOL} x sum |terms| by {ratio:.3f}x")
+    return err, ratio
+
+
 def edge_phase(fv, x, xg, card):
-    """Edge kernel vs plain for every bucket of the bench layout."""
-    err = k_ms = p_ms = 0.0
+    """Edge kernel vs plain: each per-bucket launch of the bench layout,
+    then the one work-table launch the path runs, for every separable
+    model; times the table launch back to back and queued."""
+    bucket_ms = 0.0
     for b in fv.device_buckets:
         kind = "hub" if b.owner_local is not None else "bucket"
         what = f"{kind} width {b.nbr.shape[1]}"
@@ -283,20 +319,37 @@ def edge_phase(fv, x, xg, card):
                              f"{EDGE_TOL}")
         args = (fv.model, x, xg, b.nbr, b.deg, b.xi_row, fv.inv_deg, fv.lr)
         km = cuda_ms(lambda: fk.ell_edge_force(*args))
-        pm = cuda_ms(lambda: fk.ell_edge_force_plain(*args), reps=3)
         say(f"ell_edge_force {kind} width={b.nbr.shape[1]} rows="
             f"{b.nbr.shape[0]} max_abs_err={e:.3e} bound_ratio={ratio:.4f} "
-            f"kernel_ms={km:.4f} plain_ms={pm:.4f} [{card}]")
-        err, k_ms, p_ms = max(err, e), k_ms + km, p_ms + pm
-    nbytes, terms = ell_work([(b.nbr, b.deg, b.xi_row)
-                              for b in fv.device_buckets], x, xg, True)
+            f"kernel_ms={km:.4f} [{card}]")
+        bucket_ms += km
+    t = fv.edge_table
+    err = 0.0
+    for name in ("tdist", "sigmoid", "fr", "linlog", "forceatlas"):
+        step = fv.lr if name == "tdist" else 0.02
+        e, ratio = check_table(get_model(name), x, xg, t, fv.inv_deg, step,
+                               name)
+        say(f"ell_edge_force table ({len(t.entries)} entries, "
+            f"{t.out_rows} output rows) {name}: max_abs_err={e:.3e} "
+            f"bound_ratio={ratio:.4f}")
+        if name == "tdist":
+            check(e <= EDGE_TOL, f"ell_edge_force_table: max |err| {e:.3e} > "
+                                 f"{EDGE_TOL}")
+            err = e
+    args = (fv.model, x, xg, t, fv.inv_deg, fv.lr)
+    km = cuda_ms(lambda: fk.ell_edge_force_table(*args), reps=20)
+    qm = queued_device_ms(lambda: fk.ell_edge_force_table(*args), reps=20)
+    pm = cuda_ms(lambda: fk.ell_edge_force_table_plain(*args), reps=3)
+    nbytes, terms = ell_work([p[:3] for p in t.parts()], x, xg, True)
     b_ms, by = bound_ms(nbytes, terms * term_flops(fv.model, "edge",
                                                    x.shape[1]))
-    say(f"ell_edge_force all {len(fv.device_buckets)} launches: "
-        f"kernel_ms={k_ms:.4f} bound_ms={b_ms:.4f} ({by}: {nbytes / 1e6:.1f} "
-        f"MB, {terms} terms) [{card}]")
-    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                bound_by=by)
+    say(f"ell_edge_force table, one launch: kernel_ms={km:.4f} queued="
+        f"{qm:.4f} ({terms / qm / 1e6:.2f} G neighbour rows/s) plain_ms="
+        f"{pm:.4f}; the {len(fv.device_buckets)} per-bucket launches: "
+        f"{bucket_ms:.4f}; bound_ms={b_ms:.4f} ({by}: {nbytes / 1e6:.1f} MB, "
+        f"{terms} terms) [{card}]")
+    return dict(max_abs_err=err, ms=km, queued_ms=qm, plain_ms=pm,
+                bound_ms=b_ms, bound_by=by)
 
 
 def widest_bucket(fv):
@@ -373,6 +426,32 @@ def sample_planted_fault_ratios(model, x, xg, idx, deg, rows, step):
     return bf16_xi, skip_last
 
 
+def table_planted_fault_ratios(model, x, xg, table, invd, step):
+    """Bound ratios of the work-table launch's output against two faulty
+    plain versions aimed at its design: each warp's second row dropped
+    (with a bf16 replica a warp holds two rows: deg 0 on each entry's odd
+    rows), and the first entry (the widest: the hub's) skipped.  Both must
+    be above 1."""
+    got = fk.ell_edge_force_table(model, x, xg, table, invd, step)
+
+    def ratio(fault):
+        worst = 0.0
+        for k, (nbr, deg, xi_row, ob) in enumerate(table.parts()):
+            terms = fk.ell_edge_force_terms(model, x, xg, nbr, fault(k, deg),
+                                            xi_row, invd, step)
+            worst = max(worst, bound_ratio(got[ob: ob + nbr.shape[0]], terms))
+            del terms
+        return worst
+
+    def second_row_dropped(k, deg):
+        deg = deg.clone()
+        deg[1::2] = 0
+        return deg
+
+    return (ratio(second_row_dropped),
+            ratio(lambda k, deg: deg * 0 if k == 0 else deg))
+
+
 def planted_fault_phase(fv, x, xg):
     """The elementwise bound rejects plausible kernel faults."""
     rep_ratio, edge_ratio = planted_fault_ratios(
@@ -382,14 +461,37 @@ def planted_fault_phase(fv, x, xg):
         f"attraction with bf16 x_i bound_ratio={edge_ratio:.2f} (must be > 1)")
     check(rep_ratio > 1.0, "the bound passed a repulsion with 2/r^2")
     check(edge_ratio > 1.0, "the bound passed an attraction with bf16 x_i")
+    dropped, skipped = table_planted_fault_ratios(
+        fv.model, x, xg, fv.edge_table, fv.inv_deg, fv.lr)
+    say(f"planted faults: work table with each warp's second row dropped "
+        f"bound_ratio={dropped:.2f}, with its first entry skipped "
+        f"bound_ratio={skipped:.2f} (must be > 1)")
+    check(dropped > 1.0, "the bound passed a table launch that drops each "
+                         "warp's second row")
+    check(skipped > 1.0, "the bound passed a table launch that skips its "
+                         "first entry")
 
 
 # -- one iteration, training, quality ------------------------------------------
 
 
-def iteration_phase(fv, x0, card, negs, walks=None):
+def count_ops(fn, name: str) -> int:
+    """How many times ``fn()`` calls the torch operator ``name``."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+    return sum(1 for e in prof.events() if e.name == name)
+
+
+def iteration_phase(fv, x0, card, negs, walks=None, adds=None):
     """One iteration through the kernels and through the plain versions,
-    from the same X, negatives and walks; returns (kernel ms, plain ms)."""
+    from the same X, negatives and walks, checking that it calls ``add_``
+    ``adds`` times if given; returns (kernel ms, plain ms)."""
+    if adds is not None:
+        got = count_ops(lambda: fv.run_iteration(x0.clone(), negs,
+                                                 walks=walks), "aten::add_")
+        say(f"iteration add_ calls: {got} (expected {adds})")
+        check(got == adds, f"an iteration calls add_ {got} times, not {adds}")
     a = fv.run_iteration(x0.clone(), negs, walks=walks)
     b = fv.run_iteration(x0.clone(), negs, walks=walks, plain=True)
     e = max_err(a, b)
@@ -486,8 +588,6 @@ def main_path(graph, dev, card):
     say(f"graph n={graph.n} nnz={graph.nnz} n_pad={lay.n_pad} "
         f"padded_slots={lay.padded_edges} buckets={len(lay.buckets)} "
         f"hub_rows={sum(b.count for b in lay.buckets if b.owners is not None)}")
-    edge_launches = len(fv.device_buckets)
-
     x0 = fv.init_embedding(seed=1)
     xg = x0.to(torch.bfloat16)
     edge = edge_phase(fv, x0, xg, card)
@@ -497,7 +597,8 @@ def main_path(graph, dev, card):
     ng = -(-lay.n_pad // BENCH_CONFIG.batch_size)
     negs = np.random.default_rng(7).integers(
         0, graph.n - 1, size=(ng, BENCH_CONFIG.ns)).astype(np.int32)
-    iter_ms, iter_plain_ms = iteration_phase(fv, x0, card, negs)
+    # the repulsion's add_ and X += update
+    iter_ms, iter_plain_ms = iteration_phase(fv, x0, card, negs, adds=2)
     updates = graph.nnz + graph.n * BENCH_CONFIG.ns  # bench.py:158-161
     say(f"ms_per_iteration kernels={iter_ms:.4f} plain={iter_plain_ms:.4f} "
         f"(CUDA events) [{card}]")
@@ -505,16 +606,28 @@ def main_path(graph, dev, card):
         f"plain={updates / iter_plain_ms / 1e3:.2f} M [{card}]")
 
     emb, counts = train_phase(fv, {
-        "ell_edge_force": TRAIN_ITERS * edge_launches,
-        "grouped_rep_force": TRAIN_ITERS, "ell_sample_force": 0}, card)
+        "ell_edge_force": TRAIN_ITERS, "grouped_rep_force": TRAIN_ITERS,
+        "ell_sample_force": 0}, card)
     distance_gap_check(graph, emb, QUALITY_MARGIN, "main path")
-    return edge, rep, counts, edge_launches
+    return edge, rep, counts, len(fv.device_buckets)
 
 
 # -- path A: per-vertex negatives ------------------------------------------------
 
 
-def per_vertex_path(graph, dev, card, edge_launches):
+def accumulate_check(model, x, xg, idx, deg, rows, step, what):
+    """``ell_sample_force(..., out=base, accumulate=True)`` equals
+    ``base.add_(ell_sample_force(...))`` bit for bit."""
+    base = torch.randn(x.shape, device=x.device,
+                       generator=torch.Generator(x.device).manual_seed(19))
+    got = fk.ell_sample_force(model, x, xg, idx, deg, rows, step,
+                              out=base.clone(), accumulate=True)
+    want = base.add_(fk.ell_sample_force(model, x, xg, idx, deg, rows, step))
+    check(torch.equal(got, want), f"ell_sample_force {what}: accumulate=True "
+                                  "differs from out.add_")
+
+
+def per_vertex_path(graph, dev, card):
     cfg = dataclasses.replace(BENCH_CONFIG, per_vertex_samples=True)
     fv = SyncForce2Vec(graph, cfg, MIN_WIDTH, HUB_WIDTH, device=dev)
     n_pad, ns = fv.layout.n_pad, cfg.ns
@@ -529,21 +642,32 @@ def per_vertex_path(graph, dev, card, edge_launches):
     for name in ("tdist", "sigmoid", "fr"):
         e, ratio = check_sample(get_model(name), x0, xg, idx, deg, rows,
                                 fv.lr, name)
+        accumulate_check(get_model(name), x0, xg, idx, deg, rows, fv.lr, name)
         say(f"ell_sample_force {name} ({get_model(name).sample_force.__name__}"
             f") rows={n_pad} ns={ns} max_abs_err={e:.3e} bound_ratio="
-            f"{ratio:.4f}")
+            f"{ratio:.4f}; accumulate=True bit for bit out.add_")
         errs[name] = e
     err = errs["tdist"]
     check(err <= REP_TOL, f"ell_sample_force: max |err| {err:.3e} > {REP_TOL}")
     args = (fv.model, x0, xg, idx, deg, rows, fv.lr)
-    km = cuda_ms(lambda: fk.ell_sample_force(*args), reps=20)
-    pm = cuda_ms(lambda: fk.ell_sample_force_plain(*args), reps=5)
-    nbytes, terms = ell_work([(idx, deg, rows)], x0, xg, False)
+    upd = torch.zeros_like(x0)
+    # as path A runs it: adding into the update
+    km = cuda_ms(lambda: fk.ell_sample_force(*args, out=upd, accumulate=True),
+                 reps=20)
+    qm = queued_device_ms(lambda: fk.ell_sample_force(
+        *args, out=upd, accumulate=True), reps=20)
+    store_ms = cuda_ms(lambda: fk.ell_sample_force(*args, out=upd), reps=20)
+    pm = cuda_ms(lambda: fk.ell_sample_force_plain(*args, out=upd,
+                                                   accumulate=True), reps=5)
+    nbytes, terms = ell_work([(idx, deg, rows)], x0, xg, False, True)
     b_ms, by = bound_ms(nbytes, terms * term_flops(fv.model, "sample",
                                                    cfg.dim))
-    say(f"ell_sample_force tdist kernel_ms={km:.4f} plain_ms={pm:.4f} "
-        f"bound_ms={b_ms:.4f} ({by}: {nbytes / 1e6:.1f} MB, {terms} terms) "
-        f"[{card}]")
+    store_bytes, _ = ell_work([(idx, deg, rows)], x0, xg, False)
+    say(f"ell_sample_force tdist, accumulate=True: kernel_ms={km:.4f} "
+        f"queued={qm:.4f} plain_ms={pm:.4f} bound_ms={b_ms:.4f} ({by}: "
+        f"{nbytes / 1e6:.1f} MB, {terms} terms); storing a new result: "
+        f"kernel_ms={store_ms:.4f} bound_ms="
+        f"{bound_ms(store_bytes, 0)[0]:.4f} [{card}]")
     bf16_xi, skip_last = sample_planted_fault_ratios(
         fv.model, x0, xg, idx, deg, rows, fv.lr)
     say(f"planted faults: sample force with bf16 x_i bound_ratio="
@@ -555,15 +679,16 @@ def per_vertex_path(graph, dev, card, edge_launches):
 
     negs = np.random.default_rng(7).integers(
         0, graph.n - 1, size=(n_pad, ns)).astype(np.int32)
-    iter_ms, iter_plain_ms = iteration_phase(fv, x0, card, negs)
+    # X += update: the repulsion is added in the kernel
+    iter_ms, iter_plain_ms = iteration_phase(fv, x0, card, negs, adds=1)
     say(f"per-vertex ms_per_iteration kernels={iter_ms:.4f} "
         f"plain={iter_plain_ms:.4f} (CUDA events) [{card}]")
     emb, counts = train_phase(fv, {
-        "ell_edge_force": TRAIN_ITERS * edge_launches,
-        "grouped_rep_force": 0, "ell_sample_force": TRAIN_ITERS}, card)
+        "ell_edge_force": TRAIN_ITERS, "grouped_rep_force": 0,
+        "ell_sample_force": TRAIN_ITERS}, card)
     distance_gap_check(graph, emb, PV_QUALITY_MARGIN, "-bs 1")
-    return dict(max_abs_err=err, ms=km, plain_ms=pm, bound_ms=b_ms,
-                bound_by=by), counts
+    return dict(max_abs_err=err, ms=km, queued_ms=qm, plain_ms=pm,
+                bound_ms=b_ms, bound_by=by), counts
 
 
 # -- path B: rwalk -------------------------------------------------------------
@@ -678,7 +803,7 @@ def rwalk_path(graph, dev, card):
 # -- path C: the benchmark probes ---------------------------------------------------
 
 
-def probes_path(graph, dev, card, edge_launches):
+def probes_path(graph, dev, card, buckets):
     """``tools.probes``' four experiments at their full shapes, with exact
     launch counts: each kernel timing is WARMUP + REPS launches (and
     QUEUED_REPS more for the loops: the sweeps and the 40 take groups),
@@ -699,11 +824,11 @@ def probes_path(graph, dev, card, edge_launches):
                                       "package's (64368, 40, 4023)")
     timed = probes.WARMUP + probes.REPS
     looped = timed + probes.QUEUED_REPS
-    expect = {"ell_edge_force": edge_launches * looped + 1,
+    expect = {"ell_edge_force": buckets * looped + 1,
               "grouped_rep_force": 0, "ell_sample_force": 0,
               "take_sum": 2 * (1 + timed), "resident_gather": 6 * (1 + timed),
               "read_sum": shape[1] * (1 + looped) + 1 + timed,
-              "tile_force_tc": edge_launches * looped + 1}
+              "tile_force_tc": buckets * looped + 1}
     say(f"probes path launches {counts} [{card}]")
     check(counts == expect, f"probe launch counts {counts} != {expect}")
     check(all(r["exact"] for r in recs if r["exp"] == "dg"),
@@ -904,19 +1029,22 @@ def main() -> int:
     missing = [k for k in CUDA_KERNELS
                if not any(line.startswith(k + "<") for line in ptxas)]
     check(not missing, f"kernels missing from the ptxas report: {missing}")
+    spilling = [line for line in ptxas if line.split(":")[0] in MAIN_INSTANCES
+                and " 0 bytes spill stores" not in line]
+    check(not spilling, f"main-path instances spill: {spilling}")
 
     graph = synth_powerlaw_graph()
     t0 = time.perf_counter()
-    edge, rep, counts_main, edge_launches = main_path(graph, dev, card)
+    edge, rep, counts_main, buckets = main_path(graph, dev, card)
     say(f"main path: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    sample, counts_pv = per_vertex_path(graph, dev, card, edge_launches)
+    sample, counts_pv = per_vertex_path(graph, dev, card)
     say(f"path A (-bs 1): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     counts_rw = rwalk_path(graph, dev, card)
     say(f"path B (rwalk): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    counts_probes = probes_path(graph, dev, card, edge_launches)
+    counts_probes = probes_path(graph, dev, card, buckets)
     measured = {"take_sum": take_sum_phase(dev, card),
                 "tile_force_tc": tile_force_tc_phase(graph, dev, card),
                 "resident_gather": resident_gather_phase(dev, card),

@@ -33,16 +33,16 @@ _F = ctypes.c_float
 # C entry points and their argument types (every pointer and the stream as
 # c_void_p, so ctypes never truncates them to 32 bits)
 _SIGNATURES = {
-    # x, xg, xg_is_bf16, nbr, deg, xi_row, invd, step, out, rows, width,
-    # dim, model, stream
-    "f2v_ell_edge_force": (_P, _P, _I, _P, _P, _P, _P, _F, _P, _I, _I, _I,
+    # x, xg, xg_is_bf16, nbr, deg, xi_row, invd, step, out, table (host
+    # [n_entries, 5] int64), n_entries, dim, model, stream
+    "f2v_ell_edge_force": (_P, _P, _I, _P, _P, _P, _P, _F, _P, _P, _I, _I,
                            _I, _P),
     # xi, sg, sg_is_bf16, step, out, rows, group, ns, dim, model, stream
     "f2v_grouped_rep_force": (_P, _P, _I, _F, _P, _I, _I, _I, _I, _I, _P),
-    # x, xg, xg_is_bf16, idx, deg, xi_row, step, out, rows, width, dim,
-    # model, stream
+    # x, xg, xg_is_bf16, idx, deg, xi_row, step, out, accumulate, rows,
+    # width, dim, model, stream
     "f2v_ell_sample_force": (_P, _P, _I, _P, _P, _P, _F, _P, _I, _I, _I, _I,
-                             _P),
+                             _I, _P),
     # the benchmark probes (probe_kernels.py)
     # tbl, tbl_is_bf16, idx, out, rows, k, dim, stream
     "f2v_take_sum": (_P, _I, _P, _P, _I, _I, _I, _P),

@@ -63,7 +63,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     for (int s = 0; s < p.ns; ++s) {
       float sv[V];
       load_row<float, V>(samples + s * D + lane * V, sv);
-      add_sample_force<M, V>(xi, sv, p.step, acc);
+      add_pair_force<SampleForce<M>, 32, V>(xi, sv, 0.0f, p.step, acc);
     }
     store_row<V>(p.out + r * D + lane * V, acc);
   }

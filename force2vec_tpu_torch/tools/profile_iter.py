@@ -2,13 +2,14 @@
 
     python3 -m force2vec_tpu_torch.tools.profile_iter [--iters 20]
         [--model tdist|sigmoid|rwalk|fr|linlog|forceatlas] [--per-vertex]
-        [--trace PATH] [--json PATH]
+        [--n 131072] [--trace PATH] [--json PATH]
 
 Needs one CUDA card.  Builds the same ``SyncForce2Vec`` as ``chip_smoke.py``
-(``bench.py``'s graph and TrainConfig, with ``--model`` in place of tdist
-and, with ``--per-vertex``, ``-bs 1`` negatives) and measures, on the
-kernel path, an iteration as ``train()`` runs it (for walk models, the
-walk engine's draw included):
+(``bench.py``'s graph and TrainConfig, with ``--model`` in place of tdist,
+with ``--per-vertex`` ``-bs 1`` negatives, and with ``--n`` the graph's
+vertex count, as ``bench.py``'s ``BENCH_N``) and measures, on the kernel
+path, an iteration as ``train()`` runs it (for walk models, the walk
+engine's draw included):
 
 * three times each, since the host's speed varies from one moment to the
   next: ``ms_per_iter``, CUDA events over back-to-back ``run_iteration``
@@ -16,12 +17,14 @@ walk engine's draw included):
   a sync; ``queued_device_ms``, CUDA events over iterations queued behind
   a sleep kernel, so that the device never waits for the host: the
   iteration's time once launches are free;
-* ``edge_wrapper_host_us``: host time of one ``ell_edge_force`` call on
-  the smallest bucket, or on the walk table (its checks, the device
-  guard, the ctypes launch);
+* ``edge_wrapper_host_us``: host time of the iteration's one
+  ``ell_edge_force`` call: over the layout's work table, or over the walk
+  table (its checks, the device guard, the ctypes launch);
 * ``device``: from ``torch.profiler``, each device kernel's time and
   launches per iteration, their sum ``busy_ms`` per iteration, the profiled
-  wall time per iteration, and ``idle_share = 1 - busy / wall``.
+  wall time per iteration, and ``idle_share = 1 - busy / wall``;
+* ``edge_g_rows_per_s``: the edge kernel's neighbour rows (the graph's
+  edges, or the walks' steps) per second of its device time.
 
 Every line names the card and its power limit.  ``--trace`` writes the
 profiler's Chrome trace; ``--json`` writes the numbers.
@@ -45,7 +48,7 @@ from force2vec_tpu_torch.ops import force_kernels as fk
 from force2vec_tpu_torch.tools import (BENCH_CONFIG, HUB_WIDTH, MIN_WIDTH,
                                       card_name_and_power, cuda_ms,
                                       queued_device_ms)
-from force2vec_tpu_torch.train.sync import DeviceBucket, SyncForce2Vec
+from force2vec_tpu_torch.train.sync import SyncForce2Vec
 
 
 def host_ms(fn, reps: int) -> float:
@@ -77,6 +80,8 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--model", default=BENCH_CONFIG.model)
     ap.add_argument("--per-vertex", action="store_true")
+    ap.add_argument("--n", type=int, default=131072,
+                    help="vertices of the synthetic graph (bench.py's BENCH_N)")
     ap.add_argument("--trace", default=None)
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
@@ -86,12 +91,13 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     card = card_name_and_power()
     print(card, flush=True)
-    print(f"model={args.model} per_vertex={args.per_vertex}", flush=True)
+    print(f"model={args.model} per_vertex={args.per_vertex} n={args.n}",
+          flush=True)
 
     cfg = dataclasses.replace(BENCH_CONFIG, model=args.model,
                               per_vertex_samples=args.per_vertex)
-    fv = SyncForce2Vec(synth_powerlaw_graph(), cfg, MIN_WIDTH, HUB_WIDTH,
-                       device=dev)
+    fv = SyncForce2Vec(synth_powerlaw_graph(n=args.n), cfg, MIN_WIDTH,
+                       HUB_WIDTH, device=dev)
     n_pad = fv.layout.n_pad
     rows = n_pad if cfg.per_vertex_samples else -(-n_pad // cfg.batch_size)
     negs = torch.as_tensor(np.random.default_rng(7).integers(
@@ -106,19 +112,22 @@ def main(argv=None) -> int:
 
     for _ in range(5):  # build, load and warm up
         iteration()
-    # the edge wrapper's host cost, on the smallest launch of the path
-    if is_walk:  # its one launch, over the walk table
-        small = DeviceBucket(
-            0, fv.draw_walks(gen),
-            torch.full((n_pad,), cfg.walk_length, dtype=torch.int32,
-                       device=dev),
-            torch.arange(n_pad, dtype=torch.int32, device=dev))
-    else:
-        small = min(fv.device_buckets, key=lambda b: b.nbr.shape[0])
+    # the host cost of the path's one edge launch
     xg = x.to(torch.bfloat16)
-    wrapper_args = (fv.model, x, xg, small.nbr, small.deg, small.xi_row,
-                    fv.inv_deg, fv.lr)
-    res = {"card": card, "model": cfg.model,
+    if is_walk:  # over the walk table
+        walks = fv.draw_walks(gen)
+        steps = walks.numel()
+
+        def edge_call():
+            fk.ell_edge_force(fv.model, x, xg, walks, fv._walk_deg,
+                              fv._all_rows, fv.inv_deg, fv.lr)
+    else:  # over the layout's work table
+        steps = fv.graph.nnz
+
+        def edge_call():
+            fk.ell_edge_force_table(fv.model, x, xg, fv.edge_table,
+                                    fv.inv_deg, fv.lr)
+    res = {"card": card, "model": cfg.model, "n": args.n,
            "per_vertex_samples": cfg.per_vertex_samples, "repeats": []}
     for _ in range(3):
         r = {"ms_per_iter": cuda_ms(iteration, args.iters),
@@ -127,11 +136,9 @@ def main(argv=None) -> int:
         res["repeats"].append(r)
         print(" ".join(f"{k}={v:.4f}" for k, v in r.items()) + f" [{card}]",
               flush=True)
-    res["edge_wrapper_host_us"] = 1e3 * host_ms(
-        lambda: fk.ell_edge_force(*wrapper_args), 200)
-    res["edge_wrapper_rows"] = int(small.nbr.shape[0])
-    print(f"edge_wrapper_host_us={res['edge_wrapper_host_us']:.2f} "
-          f"({res['edge_wrapper_rows']} rows) [{card}]", flush=True)
+    res["edge_wrapper_host_us"] = 1e3 * host_ms(edge_call, 200)
+    print(f"edge_wrapper_host_us={res['edge_wrapper_host_us']:.2f} [{card}]",
+          flush=True)
 
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
@@ -149,6 +156,12 @@ def main(argv=None) -> int:
                      "idle_share": 1.0 - busy / wall if kernels else None}
     if not kernels:
         print("the profiler recorded no device events", flush=True)
+    edge_ms = sum(k["ms_per_iter"] for name, k in kernels.items()
+                  if "ell_edge_force_kernel" in name)
+    res["edge_g_rows_per_s"] = steps / edge_ms / 1e6 if edge_ms else None
+    print(f"edge kernel: {edge_ms:.4f} ms/iter of device time for {steps} "
+          f"neighbour rows, {res['edge_g_rows_per_s']} G rows/s [{card}]",
+          flush=True)
     for name, k in kernels.items():
         print(f"  device {k['ms_per_iter']:.4f} ms/iter  launches/iter "
               f"{k['launches_per_iter']:.1f}  {name[:110]}", flush=True)

@@ -8,21 +8,23 @@ iteration over the degree-sorted ELL layout (graphs/csr.py::SyncLayout):
 1. ``xg``: the gather replica of X (bf16 when ``gather_dtype`` says so);
 2. attraction, by the edge kernel (``ell_edge_force``):
 
-   * CSR models: one launch per non-hub bucket, written straight into that
-     bucket's rows of the update, and one launch for the hub bucket's
-     virtual rows, whose partial sums are added into their owner rows with
-     ``index_add_``;
+   * CSR models: one launch over the layout's work table
+     (``edge_table``, every bucket, widest first), written straight into
+     the update's rows; the hub bucket's virtual rows write partial sums to
+     rows past ``n_pad``, which ``index_add_`` adds into their owner rows,
+     and a width-0 entry zeroes the rows no bucket writes (the hub owners
+     and padding);
    * walk models (``rwalk``): one launch over every table row, whose
      neighbours are the row's ``[walk_length]`` walk targets, drawn each
      iteration by the walk engine (``draw_walks``);
 
-3. repulsion:
+3. repulsion, added into the update:
 
    * group-shared negatives (the default): the ``[ng, ns, D]`` samples
-     ``xg[negs]`` and one ``grouped_rep_force`` launch;
+     ``xg[negs]``, one ``grouped_rep_force`` launch and an ``add_``;
    * per-vertex negatives (``per_vertex_samples``, the CLI's ``-bs 1``):
      one ``ell_sample_force`` launch over every table row, with its
-     ``[n_pad, ns]`` sample ids, gathered in the kernel;
+     ``[n_pad, ns]`` sample ids, gathered and added in the kernel;
 
 4. ``X += update`` (or the energy-normalized update), in place.
 
@@ -49,8 +51,8 @@ from force2vec_tpu_torch.train.trainer import TrainConfig
 
 @dataclasses.dataclass
 class DeviceBucket:
-    """One ELL bucket's index arrays on the device, as the edge kernel
-    takes them (``SyncForce2Vec.device_buckets``, one per launch)."""
+    """One ELL bucket's index arrays on the device, as the per-bucket edge
+    kernel call takes them (``SyncForce2Vec.device_buckets``)."""
 
     start: int  # first relabeled row of the bucket's update
     nbr: torch.Tensor  # [rows, width] int32
@@ -134,6 +136,7 @@ class SyncForce2Vec:
             self._ns_deg = torch.full((lay.n_pad,), config.ns,
                                       dtype=torch.int32, device=dev)
         self.device_buckets = []
+        self.edge_table = self._hub = None
         if self.model.attraction == "walk":
             pool, base = build_walk_tables(lay)
             self.walk_pool = torch.as_tensor(pool, device=dev)
@@ -165,10 +168,28 @@ class SyncForce2Vec:
                 deg=torch.as_tensor(b.deg[:real], device=dev),
                 xi_row=torch.arange(b.start, end, dtype=torch.int32,
                                     device=dev)))
-        # rows the non-hub buckets do not write: the hub range and padding
-        self._zero_from = (lay.buckets[-1].start
-                           if lay.buckets and lay.buckets[-1].owners is not None
-                           else lay.n)
+        self._hub = next((b for b in self.device_buckets
+                          if b.owner_local is not None), None)
+        self.edge_table = self._edge_table()
+
+    def _edge_table(self) -> force_kernels.EdgeWorkTable:
+        """The work table of ``device_buckets``: a non-hub bucket writes its
+        own rows of the update, the hub's virtual rows write rows ``n_pad +
+        v`` of the attraction output, and a width-0 entry zeroes the rows
+        no bucket writes (the hub's owner rows and the padding)."""
+        n_pad, dev, hub = self.layout.n_pad, self.device, self._hub
+        # the hub first: among equal widths its rows are the longest
+        parts = [(b.nbr, b.deg, b.xi_row, n_pad if b is hub else b.start)
+                 for b in ([hub] if hub else []) + [
+                     b for b in self.device_buckets if b is not hub]]
+        rest = hub.start if hub else self.layout.n
+        parts.append((torch.zeros((n_pad - rest, 0), dtype=torch.int32,
+                                  device=dev),
+                      torch.zeros(n_pad - rest, dtype=torch.int32, device=dev),
+                      torch.arange(rest, n_pad, dtype=torch.int32, device=dev),
+                      rest))
+        hub_rows = hub.nbr.shape[0] if hub else 0
+        return force_kernels.edge_work_table(parts, n_pad, n_pad + hub_rows)
 
     # -- embedding layout ---------------------------------------------------
 
@@ -225,54 +246,51 @@ class SyncForce2Vec:
 
     # -- the iteration ---------------------------------------------------------
 
-    def _attraction(self, x, xg, upd, step, plain):
-        fk, model = force_kernels, self.model
-        upd[self._zero_from:].zero_()
-        for b in self.device_buckets:
-            args = (model, x, xg, b.nbr, b.deg, b.xi_row, self.inv_deg, step)
-            if b.owner_local is None:
-                rows = upd[b.start: b.start + b.nbr.shape[0]]
-                if plain:
-                    rows.copy_(fk.ell_edge_force_plain(*args))
-                else:
-                    fk.ell_edge_force(*args, out=rows)
-            else:
-                part = (fk.ell_edge_force_plain(*args) if plain
-                        else fk.ell_edge_force(*args))
-                upd[b.start: self.layout.n].index_add_(0, b.owner_local, part)
+    def _attraction(self, x, xg, step, plain) -> torch.Tensor:
+        """[n_pad, D] attraction of the CSR models: one launch over
+        ``edge_table``, then the hub's partial rows into their owners."""
+        fk, n_pad = force_kernels, self.layout.n_pad
+        out = (fk.ell_edge_force_table_plain if plain
+               else fk.ell_edge_force_table)(self.model, x, xg,
+                                             self.edge_table, self.inv_deg,
+                                             step)
+        upd = out[:n_pad]
+        if self._hub is not None:
+            upd[self._hub.start: self.layout.n].index_add_(
+                0, self._hub.owner_local, out[n_pad:])
+        return upd
 
-    def _repulsion(self, x, xg, negs, step, plain):
+    def _walk_attraction(self, x, xg, walks, step, plain) -> torch.Tensor:
+        fk = force_kernels
+        args = (self.model, x, xg, walks, self._walk_deg, self._all_rows,
+                self.inv_deg, step)
+        return (fk.ell_edge_force_plain if plain
+                else fk.ell_edge_force)(*args)
+
+    def _add_repulsion(self, upd, x, xg, negs, step, plain) -> None:
         fk, model = force_kernels, self.model
         if self.config.per_vertex_samples:
             # ns samples of each row's own (-bs 1, the JAX package's
-            # [n_pad, ns] branch, sync.py:604-621)
-            return (fk.ell_sample_force_plain if plain
-                    else fk.ell_sample_force)(model, x, xg, negs,
-                                              self._ns_deg, self._all_rows,
-                                              step)
+            # [n_pad, ns] branch, sync.py:604-621), added in the kernel
+            (fk.ell_sample_force_plain if plain
+             else fk.ell_sample_force)(model, x, xg, negs, self._ns_deg,
+                                       self._all_rows, step, out=upd,
+                                       accumulate=True)
+            return
         # one ns-sample set per batch_size-row group — the reference's
         # option-5 sampling (sample/algorithms.cpp:577-586)
         sg = xg[negs.long()]  # [ng, ns, D]
         group = max(self.config.batch_size, 1)
-        return (fk.grouped_rep_force_plain if plain
-                else fk.grouped_rep_force)(model, group, x, sg, step)
+        upd.add_((fk.grouped_rep_force_plain if plain
+                  else fk.grouped_rep_force)(model, group, x, sg, step))
 
     def _iteration(self, x: torch.Tensor, negs: torch.Tensor,
                    walks: Optional[torch.Tensor], step: float,
                    plain: bool) -> torch.Tensor:
         xg = x if self._gdt is None else x.to(self._gdt)
-        upd = torch.empty_like(x)
-        if walks is None:
-            self._attraction(x, xg, upd, step, plain)
-        else:
-            fk = force_kernels
-            args = (self.model, x, xg, walks, self._walk_deg, self._all_rows,
-                    self.inv_deg, step)
-            if plain:
-                upd.copy_(fk.ell_edge_force_plain(*args))
-            else:
-                fk.ell_edge_force(*args, out=upd)
-        upd.add_(self._repulsion(x, xg, negs, step, plain))
+        upd = (self._attraction(x, xg, step, plain) if walks is None
+               else self._walk_attraction(x, xg, walks, step, plain))
+        self._add_repulsion(upd, x, xg, negs, step, plain)
         if self.model.update == "energy":
             fnorm = torch.sum(upd * upd, dim=-1, keepdim=True)
             safe = torch.where(fnorm > 0, fnorm, 1.0)

@@ -102,6 +102,191 @@ def test_ell_edge_force_writes_into_out():
     assert (out[:2] == 7.0).all() and (out[2 + C:] == 7.0).all()
 
 
+# -- the work table: every bucket of a layout in one launch ---------------------
+
+# (n, avg_deg, min_width, hub_width): layouts with several buckets and a hub
+TABLE_LAYOUTS = [(600, 10, 4, 32), (500, 8, 4, 16)]
+
+
+def _table_sync(layout, gather_dtype=None, model="tdist"):
+    n, avg_deg, min_width, hub_width = layout
+    g = synth_powerlaw_graph(n=n, avg_deg=avg_deg, seed=3)
+    return SyncForce2Vec(g, TrainConfig(dim=D, ns=4, batch_size=8, model=model,
+                                        gather_dtype=gather_dtype),
+                         min_width=min_width, hub_width=hub_width, device="cpu")
+
+
+def _table_inputs(fv, dtype, seed=21):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(
+        rng.uniform(-1, 1, (fv.layout.n_pad, D)).astype(np.float32))
+    return x, x.to(getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("layout", TABLE_LAYOUTS)
+def test_edge_table_covers_every_bucket_row_once(layout):
+    """The trainer's table: entries widest first; each bucket's rows once,
+    a non-hub bucket at its own rows, the hub's virtual rows at n_pad on,
+    and a width-0 entry over the rows no bucket writes (hub owners and
+    padding)."""
+    fv = _table_sync(layout)
+    lay, t = fv.layout, fv.edge_table
+    hub = lay.buckets[-1]
+    assert hub.owners is not None
+    widths = t.entries[:, 4].tolist()
+    assert widths == sorted(widths, reverse=True) and widths[-1] == 0
+    assert t.n_pad == lay.n_pad and t.out_rows == lay.n_pad + hub.count
+    written = np.zeros(t.out_rows, np.int64)
+    parts = t.parts()
+    for nbr, deg, xi_row, ob in parts:
+        written[ob: ob + nbr.shape[0]] += 1
+    np.testing.assert_array_equal(written, 1)
+    by_start = {ob: (nbr, deg, xi_row) for nbr, deg, xi_row, ob in parts}
+    for b in fv.device_buckets:
+        nbr, deg, xi_row = by_start[lay.n_pad if b.owner_local is not None
+                                    else b.start]
+        assert torch.equal(nbr, b.nbr) and torch.equal(deg, b.deg)
+        assert torch.equal(xi_row, b.xi_row)
+    # the hub is the first entry; the width-0 entry zeroes [hub start, n_pad)
+    assert t.entries[0, 2] == lay.n_pad and widths[0] == hub.width
+    nbr, deg, xi_row, ob = parts[-1]
+    assert ob == hub.start and nbr.shape == (lay.n_pad - hub.start, 0)
+    assert (deg == 0).all()
+
+
+@pytest.mark.parametrize("name", SEPARABLE)
+def test_edge_table_plain_is_the_per_bucket_loop(name):
+    """The table's plain version equals the per-bucket plain calls, bit
+    for bit, each in its output rows; the rows no bucket writes are 0."""
+    fv = _table_sync(TABLE_LAYOUTS[0])
+    x, xg = _table_inputs(fv, "bfloat16")
+    model = get_model(name)
+    got = fk.ell_edge_force_table(model, x, xg, fv.edge_table, fv.inv_deg,
+                                  STEP)
+    n_pad = fv.layout.n_pad
+    want = torch.zeros_like(got)
+    for b in fv.device_buckets:
+        rows = fk.ell_edge_force_plain(model, x, xg, b.nbr, b.deg, b.xi_row,
+                                       fv.inv_deg, STEP)
+        start = n_pad if b.owner_local is not None else b.start
+        want[start: start + rows.shape[0]] = rows
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", SEPARABLE)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_edge_table_matches_pallas(name, dtype):
+    """The table launch over a multi-bucket layout with a hub, against
+    ell_force_mxu in interpret mode on each bucket (rows padded to the
+    kernel's 8-row groups)."""
+    fv = _table_sync(TABLE_LAYOUTS[0])
+    x, xg = _table_inputs(fv, dtype)
+    got = fk.ell_edge_force_table(get_model(name), x, xg, fv.edge_table,
+                                  fv.inv_deg, STEP).numpy()
+    jxg = jnp.asarray(xg.float().numpy()).astype(dtype)
+    invd = fv.inv_deg.numpy()
+    tol = 2e-4 if dtype == "float32" else 6e-3
+    for nbr, deg, xi_row, ob in fv.edge_table.parts():
+        c, k = nbr.shape
+        if k == 0:
+            np.testing.assert_array_equal(got[ob: ob + c], 0.0)
+            continue
+        pad = -c % 8
+        nbr_p = np.pad(nbr.numpy(), ((0, pad), (0, 0)))
+        rows = np.pad(xi_row.numpy(), (0, pad))
+        xj = jnp.take(jxg, jnp.asarray(nbr_p.reshape(-1)), axis=0).reshape(
+            c + pad, k, D)
+        want = np.asarray(ell_force_mxu(
+            jax_model(name), jnp.asarray(x.numpy()[rows]), xj,
+            jnp.asarray(np.pad(deg.numpy(), (0, pad))),
+            jnp.asarray(invd[rows]), STEP, interpret=True))[:c]
+        np.testing.assert_allclose(got[ob: ob + c], want, rtol=tol, atol=tol)
+
+
+def _bad_parts(fv, case):
+    """The trainer's table parts with one fault planted (``case``)."""
+    parts = [p[:3] + (p[3],) for p in fv.edge_table.parts()]
+    nbr, deg, xi_row, ob = parts[1]
+    n_pad = fv.layout.n_pad
+    if case == "deg_past_width":
+        deg = deg.clone()
+        deg[0] = nbr.shape[1] + 1
+    elif case == "negative_deg":
+        deg = deg.clone()
+        deg[0] = -1
+    elif case == "xi_row_past_table":
+        xi_row = xi_row.clone()
+        xi_row[0] = n_pad
+    elif case == "nbr_past_table":
+        nbr = nbr.clone()
+        nbr[0, 0] = n_pad
+    elif case == "rows_overlap":
+        ob -= 1
+    elif case == "int64_nbr":
+        nbr = nbr.long()
+    elif case == "deg_length":
+        deg = deg[:-1]
+    elif case == "rows_missing":
+        return parts[:1] + parts[2:]
+    elif case == "too_many_entries":
+        return parts + [(nbr[:0], deg[:0], xi_row[:0], 0)] + [
+            (nbr[:1], deg[:1], xi_row[:1], ob)] * 64
+    parts[1] = (nbr, deg, xi_row, ob)
+    return parts
+
+
+@pytest.mark.parametrize("case", [
+    "deg_past_width", "negative_deg", "xi_row_past_table", "nbr_past_table",
+    "rows_overlap", "int64_nbr", "deg_length", "rows_missing",
+    "too_many_entries"])
+def test_edge_table_rejects_malformed_tables(case):
+    fv = _table_sync(TABLE_LAYOUTS[1])
+    t = fv.edge_table
+    fk.edge_work_table(_bad_parts(fv, "none"), t.n_pad, t.out_rows)
+    with pytest.raises(ValueError):
+        fk.edge_work_table(_bad_parts(fv, case), t.n_pad, t.out_rows)
+
+
+@pytest.mark.parametrize("case", ["x_rows", "invd_rows", "out_rows", "xg_dtype",
+                                  "no_separable_force"])
+def test_edge_table_launch_rejects_bad_operands(case):
+    fv = _table_sync(TABLE_LAYOUTS[1])
+    x, xg = _table_inputs(fv, "bfloat16")
+    args = dict(model=get_model("tdist"), x=x, xg=xg, table=fv.edge_table,
+                invd=fv.inv_deg, step=STEP, out=None)
+    fk.ell_edge_force_table(**args)
+    args.update({
+        "x_rows": dict(x=x[:-8], xg=xg[:-8]),
+        "invd_rows": dict(invd=fv.inv_deg[:-1]),
+        "out_rows": dict(out=torch.empty(fv.layout.n_pad, D)),
+        "xg_dtype": dict(xg=xg.half()),
+        "no_separable_force": dict(model=get_model("tdist_exact")),
+    }[case])
+    with pytest.raises(ValueError):
+        fk.ell_edge_force_table(**args)
+
+
+@pytest.mark.parametrize("name", SEPARABLE)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ell_sample_force_accumulate_matches_pallas(name, dtype):
+    """accumulate=True adds ell_force(kind='sample') (interpret mode) to
+    the prior out, in place; the plain version takes the same flag."""
+    x, xg, idx, deg, xi_row, invd = _ell_inputs(18, dtype)
+    prior = np.random.default_rng(3).standard_normal((C, D)).astype(np.float32)
+    want = prior + _jax_ell_force(name, "sample", x, xg, idx, deg, xi_row,
+                                  invd)
+    args = (get_model(name), torch.from_numpy(x), xg, torch.from_numpy(idx),
+            torch.from_numpy(deg), torch.from_numpy(xi_row), STEP)
+    out = torch.from_numpy(prior.copy())
+    assert fk.ell_sample_force(*args, out=out, accumulate=True) is out
+    np.testing.assert_allclose(out.numpy(), want, rtol=1e-5, atol=1e-6)
+    plain = torch.from_numpy(prior.copy())
+    fk.ell_sample_force_plain(*args, out=plain, accumulate=True)
+    assert torch.equal(plain, out)
+    with pytest.raises(ValueError):  # nothing to add into
+        fk.ell_sample_force(*args, accumulate=True)
+
+
 @pytest.mark.parametrize("name", ["tdist", "sigmoid", "fr"])
 @pytest.mark.parametrize("c,group", [(512, 128), (400, 128), (256, 256)])
 def test_grouped_rep_force_matches_pallas(name, c, group):
@@ -237,6 +422,9 @@ def test_plain_path_launches_nothing():
     fk.ell_sample_force(get_model("tdist"), torch.from_numpy(x), xg,
                         torch.from_numpy(idx), torch.from_numpy(deg),
                         torch.from_numpy(xi_row), STEP)
+    fv = _table_sync(TABLE_LAYOUTS[1])
+    fk.ell_edge_force_table(get_model("tdist"), *_table_inputs(fv, "bfloat16"),
+                            fv.edge_table, fv.inv_deg, STEP)
     assert fk.launch_counts == {"ell_edge_force": 0, "grouped_rep_force": 0,
                                 "ell_sample_force": 0}
 
@@ -327,6 +515,23 @@ def test_smoke_sample_bound_rejects_planted_faults():
     assert bf16_xi > 1.0 and skip_last > 1.0
 
 
+@pytest.mark.parametrize("layout", TABLE_LAYOUTS)
+def test_smoke_table_bound_rejects_planted_faults(layout):
+    """chip_smoke.py's table check on the CPU wrapper: the true output
+    passes every entry, the width-0 entry included; each warp's second row
+    dropped and the first entry skipped both fail."""
+    smoke = _chip_smoke()
+    fv = _table_sync(layout)
+    x, xg = _table_inputs(fv, "bfloat16")
+    model = get_model("tdist")
+    err, ratio = smoke.check_table(model, x, xg, fv.edge_table, fv.inv_deg,
+                                   STEP, "tdist")
+    assert err == 0.0 and ratio == 0.0
+    dropped, skipped = smoke.table_planted_fault_ratios(
+        model, x, xg, fv.edge_table, fv.inv_deg, STEP)
+    assert dropped > 1.0 and skipped > 1.0
+
+
 def test_smoke_work_counts_each_byte_once():
     smoke = _chip_smoke()
     x = torch.zeros((6, D))
@@ -339,6 +544,9 @@ def test_smoke_work_counts_each_byte_once():
     # 4 real ids, deg and xi_row of 2 rows, 2 output rows
     assert terms == 4
     assert nbytes == D * 4 + 4 + 3 * D * 2 + 4 * 4 + 2 * 8 + 2 * D * 4
+    # adding into out reads its rows once more
+    more, _ = smoke.ell_work([(idx, deg, rows)], x, xg, True, True)
+    assert more == nbytes + 2 * D * 4
     ms, by = smoke.bound_ms(3.35e9, 1.0)
     assert by == "bytes" and abs(ms - 1.0) < 1e-12
     assert smoke.bound_ms(1.0, 67e9) == (1.0, "operations")
@@ -366,9 +574,9 @@ def test_smoke_walk_check_passes_walks_and_rejects_faults():
 def test_smoke_ptxas_summary_names_each_instance():
     log = "\n".join([
         "ptxas info    : 0 bytes gmem",
-        "ptxas info    : Compiling entry function '_ZN3f2v50_GLOBAL__N__c28_17"
-        "_ell_edge_force_cu_f6deec6b21ell_edge_force_kernelI13__nv_bfloat16"
-        "Li4ELi0EEEvNS0_8EdgeArgsIT_EE' for 'sm_90a'",
+        "ptxas info    : Compiling entry function '_ZN3f2v50_GLOBAL__N__c2860a92"
+        "_17_ell_edge_force_cu_f6deec6b21ell_edge_force_kernelI13__nv_bfloat16"
+        "Li0EEEvNS_7EllArgsIT_EE' for 'sm_90a'",
         "ptxas info    : Function properties for _ZN3f2v5",
         "    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
         "ptxas info    : Used 48 registers, used 0 barriers",
@@ -379,7 +587,7 @@ def test_smoke_ptxas_summary_names_each_instance():
         "ptxas info    : Used 32 registers, used 1 barriers",
     ])
     assert _chip_smoke().ptxas_summary(log) == [
-        "ell_edge_force_kernel<bf16, 4, 0>: Used 48 registers, used 0 "
+        "ell_edge_force_kernel<bf16, 0>: Used 48 registers, used 0 "
         "barriers; 8 bytes stack frame, 8 bytes spill stores, 8 bytes spill "
         "loads",
         "grouped_rep_force_kernel<f32, 4, 2>: Used 32 registers, used 1 "
