@@ -53,8 +53,13 @@ path C, the probes (``python3 -m force2vec_tpu_torch.tools.probes``):
     field;
 12. holds ``take_sum``, ``tile_force_tc``, ``resident_gather`` and
     ``read_sum`` against their plain versions at the probes' shapes (each
-    with its stated bound), shows that each bound rejects a planted fault,
-    and times kernel, plain version and library call.
+    with its stated bound), shows that each bound rejects a planted fault
+    (two for each ring kernel: ``take_sum`` with the last of K rows
+    skipped and with each ring stage consumed one row short,
+    ``tile_force_tc``'s one launch over the 13 bucket tiles with each
+    row's last slot skipped and with its first entry skipped), and times
+    kernel, plain version and library call; ``take_sum`` at each ring
+    depth tried, with its gathered rows/s and TB/s from L2.
 
 The quality margins are half of what the JAX package reaches on the CPU
 with the same graph, configuration and iteration count
@@ -148,11 +153,15 @@ CUDA_KERNELS = ("ell_edge_force_kernel", "grouped_rep_force_kernel",
                 "ell_sample_force_kernel", "take_sum_kernel",
                 "tile_force_tc_kernel", "resident_gather_kernel",
                 "read_sum_partial_kernel", "read_sum_final_kernel")
-# the instances the main path and path A run (bf16 replica, tdist), which
-# must spill nothing
+# the instances the main path and path A run (bf16 replica, tdist), and
+# the ring kernels' instances, which must spill nothing
 MAIN_INSTANCES = ("ell_edge_force_kernel<bf16, 0>",
                   "ell_sample_force_kernel<bf16, 0>",
                   "grouped_rep_force_kernel<bf16, 4, 0>")
+RING_INSTANCES = ("take_sum_kernel<bf16>", "take_sum_kernel<f32>",
+                  "tile_force_tc_kernel<bf16>", "tile_force_tc_kernel<f32>")
+# take_sum's ring depths (stages per block) timed
+TAKE_DEPTHS = (2, 3, 4)
 
 
 def check(cond, msg):
@@ -810,7 +819,8 @@ def probes_path(graph, dev, card, buckets):
     after one parity launch per case (``take_sum``: 2 dtypes;
     ``resident_gather``: 2 dtypes × 3 H; ``read_sum``: each take group,
     then the whole tile) or per sweep (``ell_edge_force`` and
-    ``tile_force_tc``: the mxu_parity bucket)."""
+    ``tile_force_tc``: the mxu_parity bucket).  A sweep is 13 edge
+    launches, or one ``tile_force_tc`` launch over the 13 tiles."""
     reset_counts()
     recs = (probes.exp_vmem_take(dev) + probes.exp_sweepvar(graph, dev)
             + probes.exp_dg(dev) + probes.exp_sweepfloor(graph, dev))
@@ -828,7 +838,7 @@ def probes_path(graph, dev, card, buckets):
               "grouped_rep_force": 0, "ell_sample_force": 0,
               "take_sum": 2 * (1 + timed), "resident_gather": 6 * (1 + timed),
               "read_sum": shape[1] * (1 + looped) + 1 + timed,
-              "tile_force_tc": buckets * looped + 1}
+              "tile_force_tc": looped + 1}
     say(f"probes path launches {counts} [{card}]")
     check(counts == expect, f"probe launch counts {counts} != {expect}")
     check(all(r["exact"] for r in recs if r["exp"] == "dg"),
@@ -839,41 +849,75 @@ def probes_path(graph, dev, card, buckets):
     return counts
 
 
+def take_sum_planted_fault_ratios(tbl, idx, got):
+    """Bound ratios of ``take_sum``'s output ``got`` against two faulty
+    plain versions: the last of each row's K rows skipped, and each ring
+    stage consumed one row short (the stage's last gathered row, the last
+    id of every ``rows_per_stage``-th output row, not added).  Both must be
+    above 1."""
+    rps = pk.take_sum_rows_per_stage(idx.shape[1])
+    skip = bound_ratio(got, pk.take_sum_terms(tbl, idx[:, :-1]))
+    terms = pk.take_sum_terms(tbl, idx)
+    terms[rps - 1::rps, -1] = 0.0
+    return skip, bound_ratio(got, terms)
+
+
 def take_sum_phase(dev, card):
     """``take_sum`` against its plain terms at exp_vmem_take's shapes, for
     both table dtypes, to SUM_RTOL·Σ|terms| (only the order of 16 f32
-    additions differs); the bound must reject skipping the last of the K
-    rows.  Times the bf16 case for the kernels line."""
+    additions differs), at each ring depth of TAKE_DEPTHS, each timed with
+    its gathered rows/s and TB/s from L2; the bound must reject both
+    planted faults.  The bf16 case at the default depth goes into the
+    kernels line."""
     res = {}
     for dt in (torch.bfloat16, torch.float32):
         tbl, idx = probes.take_sum_inputs(dev, dt)
-        got = pk.take_sum(tbl, idx)
-        terms = pk.take_sum_terms(tbl, idx)
-        e, ratio = max_err(got, terms.sum(dim=1)), bound_ratio(got, terms)
-        skip = bound_ratio(got, pk.take_sum_terms(tbl, idx[:, :-1]))
-        del terms
-        check(ratio <= 1.0, f"take_sum {dt}: |err| exceeds {SUM_RTOL} x "
-                            f"sum |terms| by {ratio:.3f}x")
+        (c, k), dim = idx.shape, tbl.shape[1]
+        e = ratio = 0.0
+        for depth in TAKE_DEPTHS:
+            got = pk.take_sum(tbl, idx, stages=depth)
+            terms = pk.take_sum_terms(tbl, idx)
+            e_d, r_d = max_err(got, terms.sum(dim=1)), bound_ratio(got, terms)
+            del terms
+            check(r_d <= 1.0, f"take_sum {dt} depth {depth}: |err| exceeds "
+                              f"{SUM_RTOL} x sum |terms| by {r_d:.3f}x")
+            e, ratio = max(e, e_d), max(ratio, r_d)
+            km = cuda_ms(lambda: pk.take_sum(tbl, idx, stages=depth), reps=20)
+            smem, per_sm = pk.take_sum_occupancy(dt, depth)
+            say(f"take_sum {dt} ring depth {depth} ({smem} bytes of shared "
+                f"memory a block, {per_sm} blocks an SM, "
+                f"{per_sm * depth * pk.TAKE_STAGE_IDS} rows in flight an SM): "
+                f"max_abs_err={e_d:.3e} bound_ratio={r_d:.4f} kernel_ms="
+                f"{km:.4f}, {c * k / km / 1e6:.2f} G rows/s, "
+                f"{c * k * dim * tbl.element_size() / km / 1e9:.3f} TB/s from "
+                f"L2 [{card}]")
+        skip, short = take_sum_planted_fault_ratios(tbl, idx,
+                                                    pk.take_sum(tbl, idx))
         check(skip > 1.0, "the bound passed a take_sum that skips the last "
                           "of K rows")
+        check(short > 1.0, "the bound passed a take_sum whose ring stages "
+                           "are consumed one row short")
         km = cuda_ms(lambda: pk.take_sum(tbl, idx))
+        qm = queued_device_ms(lambda: pk.take_sum(tbl, idx), reps=20)
         pm = cuda_ms(lambda: pk.take_sum_plain(tbl, idx), reps=3)
         lm = cuda_ms(lambda: F.embedding_bag(idx, tbl, mode="sum"))
-        (c, k), dim = idx.shape, tbl.shape[1]
         nbytes = (idx.unique().numel() * dim * tbl.element_size()
                   + idx.numel() * 4 + c * dim * 4)
         b_ms, by = bound_ms(nbytes, c * k * dim)
-        say(f"take_sum {dt} [{c}, {k}] of [{tbl.shape[0]}, {dim}]: "
-            f"max_abs_err={e:.3e} bound_ratio={ratio:.4f}; last row skipped "
-            f"bound_ratio={skip:.2f} (must be > 1); kernel_ms={km:.4f} "
-            f"plain_ms={pm:.4f} library_ms={lm:.4f} (embedding_bag, "
-            f"{dt} out) bound_ms={b_ms:.4f} ({by}: {nbytes / 1e6:.1f} MB); "
-            f"{c * k / km / 1e3:.1f} M rows/s [{card}]")
+        say(f"take_sum {dt} [{c}, {k}] of [{tbl.shape[0]}, {dim}], filler "
+            f"{pk.TAKE_FILLER}, ring depth {pk.TAKE_STAGES}: at every depth "
+            f"max_abs_err <= {e:.3e} bound_ratio <= {ratio:.4f}; "
+            f"last row skipped bound_ratio={skip:.2f}, stages one row short "
+            f"bound_ratio={short:.2f} (must be > 1); kernel_ms={km:.4f} "
+            f"queued={qm:.4f} plain_ms={pm:.4f} library_ms={lm:.4f} "
+            f"(embedding_bag, {dt} out) bound_ms={b_ms:.4f} ({by}: "
+            f"{nbytes / 1e6:.1f} MB); {c * k / km / 1e6:.2f} G rows/s "
+            f"[{card}]")
         res.setdefault("max_abs_err", 0.0)
         res["max_abs_err"] = max(res["max_abs_err"], e)
         if dt == torch.bfloat16:
-            res.update(ms=km, plain_ms=pm, library_ms=lm, bound_ms=b_ms,
-                       bound_by=by)
+            res.update(ms=km, queued_ms=qm, plain_ms=pm, library_ms=lm,
+                       bound_ms=b_ms, bound_by=by)
     return res
 
 
@@ -961,46 +1005,65 @@ def read_sum_phase(graph, dev, card):
                 library_ms=lm, bound_ms=b_ms, bound_by=by)
 
 
+def tile_table_planted_fault_ratios(work, got, step):
+    """Bound ratios of a ``tile_force_tc_table`` output ``got`` (one
+    result per part) against two faulty plain versions: each row's last
+    slot skipped (the least ratio over the parts: each must reject it), and
+    the table's first entry (the widest, launched first) skipped.  Both
+    must be above 1."""
+    def ratios(fault):
+        return [bound_ratio(out, pk.tile_force_tc_terms(xi, xj, fault(i, deg),
+                                                        step), TC_RTOL)
+                for i, ((xi, xj, deg), out) in enumerate(zip(work.parts, got))]
+
+    first = work.order[0]
+    return (min(ratios(lambda i, deg: (deg - 1).clamp(min=0))),
+            max(ratios(lambda i, deg: deg * 0 if i == first else deg)))
+
+
 def tile_force_tc_phase(graph, dev, card):
-    """``tile_force_tc`` over the bench layout's 13 materialised bucket
-    tiles, each against its plain terms to TC_RTOL·Σ|terms|; for every
-    bucket the bound must reject skipping the last slot.  Times the 13
-    launches on the tiles (the gather that made them not included)."""
+    """``tile_force_tc`` as one launch over a work table of the bench
+    layout's 13 materialised bucket tiles, each entry against its plain
+    terms to TC_RTOL·Σ|terms|; the bound must reject both planted faults.
+    Times the one launch back to back and queued (the gather that made
+    the tiles not included)."""
     fv, _, xg, xis = probes.sweep_setup(graph, dev)
     step = probes.STEP
-    work = [(xi, xg[b.nbr.long()], b.deg)
-            for b, xi in zip(fv.device_buckets, xis)]
-    e, ratio, skip = 0.0, 0.0, float("inf")
-    for xi, xj, deg in work:
-        got = pk.tile_force_tc(xi, xj, deg, step)
+    work = pk.tile_work_table([(xi, xg[b.nbr.long()], b.deg)
+                               for b, xi in zip(fv.device_buckets, xis)])
+    got = pk.tile_force_tc_table(work, step)
+    e, ratio = 0.0, 0.0
+    for (xi, xj, deg), out in zip(work.parts, got):
         terms = pk.tile_force_tc_terms(xi, xj, deg, step)
-        e = max(e, max_err(got, terms.sum(dim=1)))
-        ratio = max(ratio, bound_ratio(got, terms, TC_RTOL))
+        e = max(e, max_err(out, terms.sum(dim=1)))
+        ratio = max(ratio, bound_ratio(out, terms, TC_RTOL))
         del terms
-        skip = min(skip, bound_ratio(got, pk.tile_force_tc_terms(
-            xi, xj, (deg - 1).clamp(min=0), step), TC_RTOL))
+    skip, first = tile_table_planted_fault_ratios(work, got, step)
     check(ratio <= 1.0, f"tile_force_tc: |err| exceeds {TC_RTOL:.3e} x sum "
                         f"|terms| by {ratio:.3f}x")
     check(skip > 1.0, "the bound passed a tile_force_tc that skips the last "
                       "slot")
-    def kernel():
-        for w in work:
-            pk.tile_force_tc(*w, step)
-
-    km, qm = cuda_ms(kernel), queued_device_ms(kernel, reps=5)
-    pm = cuda_ms(lambda: [pk.tile_force_tc_plain(*w, step) for w in work],
-                 reps=3)
-    slots = sum(int(deg.sum()) for _, _, deg in work)
-    rows = sum(xi.shape[0] for xi, _, _ in work)
+    check(first > 1.0, "the bound passed a tile_force_tc table launch that "
+                       "skips its first entry")
+    km = cuda_ms(lambda: pk.tile_force_tc_table(work, step), reps=20)
+    qm = queued_device_ms(lambda: pk.tile_force_tc_table(work, step),
+                          reps=20)
+    pm = cuda_ms(lambda: pk.tile_force_tc_table_plain(work, step), reps=3)
+    slots = sum(int(deg.sum()) for _, _, deg in work.parts)
+    rows = work.out_rows
     dim = xg.shape[1]
     nbytes = slots * dim * xg.element_size() + rows * (2 * dim * 4 + 4)
     # per real slot and value: sub, square, coefficient mul, 2 clamps,
     # step mul, add (the tensor cores' 2·dim per slot are < 1% at 495 TF/s)
     b_ms, by = bound_ms(nbytes, slots * 7 * dim)
-    say(f"tile_force_tc {len(work)} buckets, {rows} rows, {slots} real "
-        f"slots: max_abs_err={e:.3e} bound_ratio={ratio:.4f} ({TC_RTOL:.3e} "
-        f"x sum |terms|); last slot skipped bound_ratio >= {skip:.2f} (must "
-        f"be > 1); kernel_ms={km:.4f} queued={qm:.4f} plain_ms={pm:.4f} "
+    smem, per_sm = pk.tile_force_tc_occupancy(xg.dtype)
+    say(f"tile_force_tc one launch over {len(work.entries)} buckets, {rows} "
+        f"rows, {slots} real slots ({smem} bytes of shared memory a block, "
+        f"{per_sm} blocks an SM): max_abs_err={e:.3e} bound_ratio="
+        f"{ratio:.4f} ({TC_RTOL:.3e} x sum |terms|); last slot skipped "
+        f"bound_ratio >= {skip:.2f}, first entry skipped bound_ratio="
+        f"{first:.2f} (must be > 1); kernel_ms={km:.4f} queued={qm:.4f} "
+        f"({nbytes / qm / 1e9:.3f} TB/s) plain_ms={pm:.4f} "
         f"bound_ms={b_ms:.4f} ({by}: {nbytes / 1e6:.1f} MB) [{card}]")
     return dict(max_abs_err=e, ms=km, queued_ms=qm, plain_ms=pm,
                 library_ms=None, bound_ms=b_ms, bound_by=by)
@@ -1029,9 +1092,14 @@ def main() -> int:
     missing = [k for k in CUDA_KERNELS
                if not any(line.startswith(k + "<") for line in ptxas)]
     check(not missing, f"kernels missing from the ptxas report: {missing}")
-    spilling = [line for line in ptxas if line.split(":")[0] in MAIN_INSTANCES
+    spilling = [line for line in ptxas
+                if line.split(":")[0] in MAIN_INSTANCES + RING_INSTANCES
                 and " 0 bytes spill stores" not in line]
-    check(not spilling, f"main-path instances spill: {spilling}")
+    check(not spilling, f"main-path or ring instances spill: {spilling}")
+    missing = [k for k in RING_INSTANCES
+               if not any(line.startswith(k + ":") for line in ptxas)]
+    check(not missing, f"ring instances missing from the ptxas report: "
+                       f"{missing}")
 
     graph = synth_powerlaw_graph()
     t0 = time.perf_counter()

@@ -44,15 +44,21 @@ _SIGNATURES = {
     "f2v_ell_sample_force": (_P, _P, _I, _P, _P, _P, _F, _P, _I, _I, _I, _I,
                              _I, _P),
     # the benchmark probes (probe_kernels.py)
-    # tbl, tbl_is_bf16, idx, out, rows, k, dim, stream
-    "f2v_take_sum": (_P, _I, _P, _P, _I, _I, _I, _P),
+    # tbl, tbl_is_bf16, idx, out, rows, k, dim, stages, stream
+    "f2v_take_sum": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
+    # tbl_is_bf16, stages, res (int[2]: shared memory bytes per block,
+    # blocks per SM)
+    "f2v_take_sum_occupancy": (_I, _I, _P),
     # tbl, idx, out, rows, row_bytes, stream
     "f2v_resident_gather": (_P, _P, _P, _I, _I, _P),
     # tile, tile_is_bf16, partial, out, rows, dim, blocks, rows_per_block,
     # stream
     "f2v_read_sum": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
-    # xi, xj, xj_is_bf16, deg, step, out, rows, width, dim, stream
-    "f2v_tile_force_tc": (_P, _P, _I, _P, _F, _P, _I, _I, _I, _P),
+    # table (host [n_entries, 6] int64), n_entries, xj_is_bf16, step, out,
+    # dim, stream
+    "f2v_tile_force_tc": (_P, _I, _I, _F, _P, _I, _P),
+    # xj_is_bf16, res (int[2], as for take_sum)
+    "f2v_tile_force_tc_occupancy": (_I, _P),
 }
 
 

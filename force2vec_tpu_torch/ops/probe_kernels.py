@@ -2,12 +2,15 @@
 
 The counterpart of the four Pallas probes in ``benchmarks/``:
 
-* ``take_sum`` (``csrc/take_sum.cu``): the sum of K gathered table rows;
-  it replaces ``benchmarks/exp_r3.py:146-160`` ``vmem_take`` (both of its
-  lowerings, ``take`` and ``rowloop``, computed this one function);
+* ``take_sum`` (``csrc/take_sum.cu``): the sum of K gathered table rows,
+  copied into a shared-memory ring; it replaces
+  ``benchmarks/exp_r3.py:146-160`` ``vmem_take`` (both of its lowerings,
+  ``take`` and ``rowloop``, computed this one function);
 * ``tile_force_tc`` (``csrc/tile_force_tc.cu``): the tdist edge sweep over
-  a materialised tile with the D-axis reduction on the tensor cores; it
-  replaces ``benchmarks/exp_r3.py:638-656`` ``mxu_force``;
+  materialised tiles with the D-axis reduction on the tensor cores, one
+  launch over a work table of tiles (``tile_work_table``,
+  ``tile_force_tc_table``); it replaces ``benchmarks/exp_r3.py:638-656``
+  ``mxu_force``;
 * ``resident_gather`` (``csrc/resident_gather.cu``): a row gather from a
   table that stays in L2; it replaces ``benchmarks/exp_r4.py:127-148``
   ``_dg_call``;
@@ -25,14 +28,17 @@ version.  No kernel bounds-checks its ids: they must index the table.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from force2vec_tpu_torch.models.forces import MAXBOUND
 from force2vec_tpu_torch.ops import _build
 from force2vec_tpu_torch.ops.force_kernels import (_GATHER_DTYPES, _KERNEL_DIM,
-                                                   _check,
+                                                   _MAX_ENTRIES, _check,
                                                    _check_cuda_operands,
                                                    _require, _stream)
 
@@ -44,6 +50,13 @@ launch_counts = {"take_sum": 0, "resident_gather": 0, "read_sum": 0,
 READ_ROWS_PER_BLOCK = 256
 READ_MAX_BLOCKS = 1024
 _READ_THREADS = 256
+# take_sum's ring (csrc/take_sum.cu): gathered rows per stage
+# (kStageIds), so a stage holds TAKE_STAGE_IDS // K output rows and K is at
+# most TAKE_STAGE_IDS; the stages a block's ring has by default; how the
+# ring is filled.
+TAKE_STAGE_IDS = 32
+TAKE_STAGES = 2
+TAKE_FILLER = "cp.async"
 
 
 def reset_launch_counts() -> None:
@@ -68,13 +81,19 @@ def take_sum_plain(tbl, idx) -> torch.Tensor:
     return take_sum_terms(tbl, idx).sum(dim=1)
 
 
-def take_sum(tbl, idx) -> torch.Tensor:
+def take_sum_rows_per_stage(k: int) -> int:
+    """Output rows a stage of ``take_sum``'s ring holds at K = k."""
+    return TAKE_STAGE_IDS // k
+
+
+def take_sum(tbl, idx, *, stages: int = TAKE_STAGES) -> torch.Tensor:
     """Sum of K gathered table rows per output row, gathering in the kernel.
 
     tbl [H, D] bf16 or f32; idx [C, K] int32 rows of tbl.  Returns [C, D]
-    f32.  The TPU counterpart is ``benchmarks/exp_r3.py:146-160``
-    ``vmem_take`` (its ``mode`` picked one of two Mosaic lowerings of this
-    function, so there is none here).
+    f32.  ``stages`` is the depth of the kernel's shared-memory ring.  The
+    TPU counterpart is ``benchmarks/exp_r3.py:146-160`` ``vmem_take`` (its
+    ``mode`` picked one of two Mosaic lowerings of this function, so there
+    is none here).  The kernel takes 1 ≤ K ≤ ``TAKE_STAGE_IDS``.
     """
     dev = tbl.device
     _check("tbl", tbl, _GATHER_DTYPES, 2, dev)
@@ -84,15 +103,34 @@ def take_sum(tbl, idx) -> torch.Tensor:
     if dev.type == "cpu":
         return take_sum_plain(tbl, idx)
     _require(dev.type == "cuda", f"no kernel for device {dev}")
+    _require(1 <= k <= TAKE_STAGE_IDS,
+             f"the kernel takes 1 to {TAKE_STAGE_IDS} ids per row, got {k}")
+    _require(stages >= 1, f"bad ring depth {stages}")
     out = torch.empty((c, dim), dtype=torch.float32, device=dev)
     _check_cuda_operands(dim, tbl, out)
     lib = _build.load_library()
     with torch.cuda.device(dev):
         err = lib.f2v_take_sum(tbl.data_ptr(), _is_bf16(tbl), idx.data_ptr(),
-                               out.data_ptr(), c, k, dim, _stream(dev))
+                               out.data_ptr(), c, k, dim, stages,
+                               _stream(dev))
     _build.check(lib, "take_sum", err)
     launch_counts["take_sum"] += 1
     return out
+
+
+def _occupancy(fn, name, *args):
+    res = (ctypes.c_int * 2)()
+    lib = _build.load_library()
+    _build.check(lib, name, getattr(lib, fn)(*args, ctypes.addressof(res)))
+    return res[0], res[1]
+
+
+def take_sum_occupancy(dtype: torch.dtype, stages: int = TAKE_STAGES):
+    """(dynamic shared memory bytes per block, blocks per SM) of
+    ``take_sum``'s kernel on the current card, with a ``stages``-deep
+    ring."""
+    return _occupancy("f2v_take_sum_occupancy", "take_sum",
+                      int(dtype == torch.bfloat16), stages)
 
 
 # -- resident_gather: rows from an L2-resident table ---------------------------
@@ -210,6 +248,37 @@ def tile_force_tc_plain(xi, xj, deg, step) -> torch.Tensor:
     return tile_force_tc_terms(xi, xj, deg, step).sum(dim=1)
 
 
+def _tile_entry(xi, xj, deg, out_begin):
+    """One row of the kernel's host table (csrc/tile_force_tc.cu)."""
+    c, k, _ = xj.shape
+    return (xi.data_ptr(), xj.data_ptr(), deg.data_ptr(), out_begin, c, k)
+
+
+def _launch_tile(entries, xj_dtype, step, out) -> None:
+    """One ``tile_force_tc`` launch over ``entries`` ([E, 6] int64, in
+    launch order), on checked operands."""
+    dev = out.device
+    _require(dev.type == "cuda", f"no kernel for device {dev}")
+    _check_cuda_operands(out.shape[1], out)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        err = lib.f2v_tile_force_tc(entries.ctypes.data, entries.shape[0],
+                                    int(xj_dtype == torch.bfloat16),
+                                    float(step), out.data_ptr(), out.shape[1],
+                                    _stream(dev))
+    _build.check(lib, "tile_force_tc", err)
+    launch_counts["tile_force_tc"] += 1
+
+
+def _check_tile(xi, xj, deg, dev):
+    _check("xi", xi, (torch.float32,), 2, dev)
+    _check("xj", xj, _GATHER_DTYPES, 3, dev)
+    _check("deg", deg, (torch.int32,), 1, dev)
+    c, k, dim = xj.shape
+    _require(xi.shape == (c, dim), f"xi {tuple(xi.shape)} != {(c, dim)}")
+    _require(deg.shape == (c,), "deg must have one entry per tile row")
+
+
 def tile_force_tc(xi, xj, deg, step) -> torch.Tensor:
     """The tdist edge sweep over a materialised tile, with a = Σ_d (xi −
     xj)² on the tensor cores (one TF32 pass: each term is within 2⁻¹¹ of
@@ -218,25 +287,93 @@ def tile_force_tc(xi, xj, deg, step) -> torch.Tensor:
     xi [C, D] f32; xj [C, K, D] bf16 or f32 neighbour rows; deg [C] int32
     valid slots per row (slots past K count as K); step a float.  Returns
     [C, D] f32.  tdist only, and no invd, as its TPU counterpart
-    ``benchmarks/exp_r3.py:638-656`` ``mxu_force``.
+    ``benchmarks/exp_r3.py:638-656`` ``mxu_force``.  One launch of the
+    table kernel, over a one-entry table.
     """
     dev = xi.device
-    _check("xi", xi, (torch.float32,), 2, dev)
-    _check("xj", xj, _GATHER_DTYPES, 3, dev)
-    _check("deg", deg, (torch.int32,), 1, dev)
+    _check_tile(xi, xj, deg, dev)
     c, k, dim = xj.shape
-    _require(xi.shape == (c, dim), f"xi {tuple(xi.shape)} != {(c, dim)}")
-    _require(deg.shape == (c,), "deg must have one entry per tile row")
     if dev.type == "cpu":
         return tile_force_tc_plain(xi, xj, deg, step)
     _require(dev.type == "cuda", f"no kernel for device {dev}")
     out = torch.empty((c, dim), dtype=torch.float32, device=dev)
     _check_cuda_operands(dim, xi, xj, out)
-    lib = _build.load_library()
-    with torch.cuda.device(dev):
-        err = lib.f2v_tile_force_tc(xi.data_ptr(), xj.data_ptr(), _is_bf16(xj),
-                                    deg.data_ptr(), float(step),
-                                    out.data_ptr(), c, k, dim, _stream(dev))
-    _build.check(lib, "tile_force_tc", err)
-    launch_counts["tile_force_tc"] += 1
+    if c:
+        _launch_tile(np.array([_tile_entry(xi, xj, deg, 0)], dtype=np.int64),
+                     xj.dtype, step, out)
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class TileWorkTable:
+    """Several materialised tiles as one ``tile_force_tc`` launch.  Built
+    and checked once by ``tile_work_table``; it holds the tiles, so their
+    contents may change between launches, not their storage."""
+
+    parts: tuple  # ((xi [C, D], xj [C, K, D], deg [C]), ...), caller's order
+    order: tuple  # the non-empty parts' indices in launch order
+    # [E, 6] int64 per entry of ``order`` (csrc/tile_force_tc.cu: xi, xj
+    # and deg pointers, first output row, rows, width)
+    entries: np.ndarray
+    out_rows: int  # Σ C; part p writes rows [Σ_{q<p} C_q, Σ_{q≤p} C_q)
+
+
+def tile_work_table(parts) -> TileWorkTable:
+    """The work table of ``parts``, each ``(xi [C, D] f32, xj [C, K, D],
+    deg [C] int32)`` as ``tile_force_tc`` takes them, every xj of one dtype
+    (bf16 or f32) and D the kernels' 128.  Checks, once: types, shapes, one
+    device, deg in [0, K], and 16-byte aligned rows (the kernel copies them
+    with the copy engine).  Entries run widest first (a stable sort), so
+    the longest rows start first; parts with no rows launch nothing."""
+    parts = tuple(tuple(p) for p in parts)
+    _require(0 < len(parts) <= _MAX_ENTRIES,
+             f"a work table holds 1 to {_MAX_ENTRIES} tiles, got "
+             f"{len(parts)}")
+    dev = parts[0][0].device
+    dtype = parts[0][1].dtype
+    entries, row = [], 0
+    for i, (xi, xj, deg) in enumerate(parts):
+        _check_tile(xi, xj, deg, dev)
+        c, k, dim = xj.shape
+        _require(xj.dtype == dtype, "every xj must have one dtype")
+        _require(dim == _KERNEL_DIM,
+                 f"the kernel takes dim {_KERNEL_DIM}, got {dim}")
+        _require(bool(((deg >= 0) & (deg <= k)).all()),
+                 "deg must lie in [0, width]")
+        _require(xi.data_ptr() % 16 == 0 and xj.data_ptr() % 16 == 0,
+                 "xi and xj must start at 16-byte aligned rows")
+        if c:
+            entries.append((i, _tile_entry(xi, xj, deg, row)))
+        row += c
+    _require(bool(entries), "a work table needs a tile with rows")
+    entries.sort(key=lambda e: -e[1][5])
+    return TileWorkTable(
+        parts=parts, order=tuple(i for i, _ in entries),
+        entries=np.ascontiguousarray([e for _, e in entries], dtype=np.int64),
+        out_rows=row)
+
+
+def tile_force_tc_table_plain(work: TileWorkTable, step) -> list:
+    """``tile_force_tc_plain`` of each part, in the table's part order."""
+    return [tile_force_tc_plain(xi, xj, deg, step)
+            for xi, xj, deg in work.parts]
+
+
+def tile_force_tc_table(work: TileWorkTable, step) -> list:
+    """``tile_force_tc`` over every part of ``work`` in one launch.
+    Returns one [C, D] f32 result per part, in the table's part order:
+    views of one [work.out_rows, D] tensor."""
+    xi0, xj0, _ = work.parts[0]
+    if xi0.device.type == "cpu":
+        return tile_force_tc_table_plain(work, step)
+    out = torch.empty((work.out_rows, xj0.shape[2]), dtype=torch.float32,
+                      device=xi0.device)
+    _launch_tile(work.entries, xj0.dtype, step, out)
+    return list(out.split([xi.shape[0] for xi, _, _ in work.parts]))
+
+
+def tile_force_tc_occupancy(dtype: torch.dtype):
+    """(dynamic shared memory bytes per block, blocks per SM) of
+    ``tile_force_tc``'s kernel on the current card."""
+    return _occupancy("f2v_tile_force_tc_occupancy", "tile_force_tc",
+                      int(dtype == torch.bfloat16))

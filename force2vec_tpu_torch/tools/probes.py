@@ -9,16 +9,18 @@ JAX package, each driving one of the probe kernels
 
 * ``vmem_take`` (``benchmarks/exp_r3.py:163-198``): ``take_sum``, the sum
   of 16 rows gathered from a [16384, 128] table per output row, against
-  its plain version, then M gathered rows/s per dtype, beside
+  its plain version, then M gathered rows/s per dtype and the TB/s they
+  read from L2, with the ring's filler and depth, beside
   ``F.embedding_bag(idx, tbl, mode="sum")`` (the same function; with a
   bf16 table it returns bf16);
 * ``sweepvar`` (``benchmarks/exp_r3.py:591-725``): ms over the bench
   layout's 13 buckets for three ways to compute the tdist attraction:
   ``cuda`` (``ell_edge_force``, gather in the kernel; the JAX tool's
-  ``pallas``), ``tc`` (an ``xg[nbr]`` gather, then ``tile_force_tc``
-  with the D reduction on the tensor cores; ``mxu``) and ``plain`` (the
-  plain versions; ``barrier``); then ``mxu_parity``, ``tile_force_tc``
-  against ``ell_edge_force`` on bucket 2;
+  ``pallas``), ``tc`` (13 ``index_select`` gathers into the buckets'
+  tiles, then one ``tile_force_tc_table`` launch over all 13 with the D
+  reduction on the tensor cores; ``mxu``) and ``plain`` (the plain
+  versions; ``barrier``); then ``mxu_parity``, ``tile_force_tc`` against
+  ``ell_edge_force`` on bucket 2;
 * ``dg`` (``benchmarks/exp_r4.py:151-181``): ``resident_gather``, ~4 M
   rows from an [H, 128] table, H in {2048, 8192, 32768}, M rows/s per
   (dtype, H), beside ``torch.index_select(tbl, 0, idx)``;
@@ -114,8 +116,11 @@ def exp_vmem_take(device, h=16384, d=128, c=65536, k=16) -> list:
         ms = _ms(dev, lambda: pk.take_sum(tbl, idx))
         lib_ms = _ms(dev, lambda: F.embedding_bag(idx, tbl, mode="sum"))
         out.append(dict(exp="vmem_take", dtype=dt, h=h, k=k, rows=c,
-                        max_abs_err=err, ms=ms,
+                        filler=pk.TAKE_FILLER,
+                        stages=pk.TAKE_STAGES, max_abs_err=err, ms=ms,
                         m_rows_per_s=_per_s(c * k, ms, 1e6),
+                        l2_tb_per_s=_per_s(c * k * d * tbl.element_size(),
+                                           ms, 1e12),
                         library_ms=lib_ms, library_dtype=dt))
     return out
 
@@ -272,9 +277,18 @@ def exp_sweepvar(graph, device, min_width=MIN_WIDTH, hub_width=HUB_WIDTH,
         for b in buckets:
             fk.ell_edge_force(*edge_args(b))
 
+    # tc: the buckets' tiles gathered into buffers that one work table
+    # launch sweeps
+    tiles = [torch.empty((*b.nbr.shape, x.shape[1]), dtype=xg.dtype,
+                         device=dev) for b in buckets]
+    work = pk.tile_work_table([(xi, t, b.deg)
+                               for b, xi, t in zip(buckets, xis, tiles)])
+
     def tc():
-        for b, xi in zip(buckets, xis):
-            pk.tile_force_tc(xi, xg[b.nbr.long()], b.deg, STEP)
+        for b, t in zip(buckets, tiles):
+            torch.index_select(xg, 0, b.nbr.view(-1),
+                               out=t.view(-1, t.shape[-1]))
+        pk.tile_force_tc_table(work, STEP)
 
     def plain():
         for b in buckets:

@@ -160,6 +160,61 @@ def test_tile_force_tc_matches_mxu_force_and_ell_force():
     np.testing.assert_array_equal(got[deg == 0], 0.0)
 
 
+def _ragged_tile(rng, c, k, dtype):
+    """(xi [c, D] f32, xj [c, k, D], deg [c]) as numpy and torch, deg from
+    0 to K (rows 0 and 1 hold 0 and K)."""
+    xi = rng.uniform(-1, 1, (c, D)).astype(np.float32)
+    xj, jxj = _table(rng, (c, k, D), dtype)
+    deg = rng.integers(0, k + 1, c).astype(np.int32)
+    deg[:2] = (0, k)
+    return xi, xj, jxj, deg
+
+
+@pytest.fixture(scope="module")
+def tile_table():
+    """A 3-entry work table of widths 8, 16 and 128 (in that order) with
+    ragged deg, its parts as numpy and JAX arrays, and mxu_force."""
+    mxu_kernel, mxu_force = _nested("exp_r3.py", "exp_sweepvar",
+                                    ["mxu_kernel", "mxu_force"])
+    del mxu_kernel  # mxu_force calls it by name
+    rng = np.random.default_rng(7)
+    raw = [_ragged_tile(rng, c, k, "bfloat16")
+           for c, k in ((24, 8), (16, 16), (8, 128))]
+    work = pk.tile_work_table([(torch.from_numpy(xi), xj,
+                                torch.from_numpy(deg))
+                               for xi, xj, _, deg in raw])
+    return work, raw, mxu_force
+
+
+def test_tile_force_tc_table_is_the_per_entry_sweep(tile_table):
+    """The plain table equals ``tile_force_tc_plain`` per entry, bit for
+    bit, in the caller's order; entries launch widest first."""
+    work, _, _ = tile_table
+    assert work.order == (2, 1, 0)
+    assert work.entries[:, 5].tolist() == [128, 16, 8]
+    assert work.entries[:, 3].tolist() == [40, 24, 0]  # first output rows
+    assert work.out_rows == 48
+    got = pk.tile_force_tc_table(work, STEP)
+    assert [tuple(g.shape) for g in got] == [(24, D), (16, D), (8, D)]
+    for g, (xi, xj, deg) in zip(got, work.parts):
+        assert torch.equal(g, pk.tile_force_tc_plain(xi, xj, deg, STEP))
+        assert torch.equal(g, pk.tile_force_tc(xi, xj, deg, STEP))
+        assert torch.equal(g[deg == 0], torch.zeros_like(g[deg == 0]))
+
+
+@pytest.mark.parametrize("entry", range(3))
+def test_tile_force_tc_table_entry_matches_mxu_force(tile_table, entry):
+    work, raw, mxu_force = tile_table
+    xi, _, jxj, deg = raw[entry]
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(mxu_force(jnp.asarray(xi), jxj, jnp.asarray(deg),
+                                    STEP))
+    got = pk.tile_force_tc_table(work, STEP)[entry].numpy()
+    scale = pk.tile_force_tc_terms(*work.parts[entry], STEP).abs().sum(
+        dim=1).numpy()
+    _within(got, want, scale, 1e-6)
+
+
 # -- read_sum vs exp_r4.ro_call ---------------------------------------------------
 
 
@@ -209,6 +264,9 @@ def _bad_calls():
     xj = torch.zeros((4, 2, D), dtype=torch.bfloat16)
     deg = torch.zeros(4, dtype=torch.int32)
     meta = torch.empty((8, D), dtype=torch.bfloat16, device="meta")
+    # xj whose rows start 2 bytes past a 16-byte boundary
+    shifted = torch.zeros(4 * 2 * D + 1, dtype=torch.bfloat16)[1:].view(4, 2, D)
+    table = pk.tile_work_table
     return [
         lambda: pk.take_sum(tbl, idx.long()),
         lambda: pk.take_sum(tbl.half(), idx),
@@ -225,6 +283,25 @@ def _bad_calls():
         lambda: pk.tile_force_tc(xi.double(), xj, deg, STEP),
         lambda: pk.tile_force_tc(xi.to("meta"), xj.to("meta"),
                                  deg.to("meta"), STEP),
+        # tile_work_table's input checks
+        lambda: table([]),
+        lambda: table([(xi, xj, deg)] * 65),
+        lambda: table([(xi.double(), xj, deg)]),
+        lambda: table([(xi, xj.half(), deg)]),
+        lambda: table([(xi, xj, deg.long())]),
+        lambda: table([(xi, xj, deg), (xi, xj.float(), deg)]),
+        lambda: table([(xi[:3], xj, deg)]),
+        lambda: table([(xi, xj, deg[:3])]),
+        lambda: table([(xi, xj[:, 0], deg)]),
+        lambda: table([(xi[:, :64].contiguous(), xj[:, :, :64].contiguous(),
+                        deg)]),
+        lambda: table([(xi, xj, deg.to("meta"))]),
+        lambda: table([(xi, xj, deg), (xi.to("meta"), xj.to("meta"),
+                                       deg.to("meta"))]),
+        lambda: table([(xi, xj, deg + 3)]),
+        lambda: table([(xi, xj, deg - 1)]),
+        lambda: table([(xi, shifted, deg)]),
+        lambda: table([(xi[:0], xj[:0], deg[:0])]),
     ]
 
 
@@ -236,12 +313,21 @@ def test_probe_wrappers_reject_bad_inputs(case):
         _bad_calls()[case]()
 
 
-def test_probe_wrappers_count_no_cpu_launch():
+def test_probe_wrappers_count_no_cpu_launch(tile_table):
     pk.reset_launch_counts()
     tbl = torch.ones((8, D))
     pk.take_sum(tbl, torch.zeros((2, 3), dtype=torch.int32))
     pk.read_sum(tbl[None])
+    work = tile_table[0]
+    pk.tile_force_tc_table(work, STEP)
+    pk.tile_force_tc(*work.parts[0], STEP)
     assert set(pk.launch_counts.values()) == {0}
+
+
+@pytest.mark.parametrize("k,rows", [(1, 32), (5, 6), (16, 2), (32, 1)])
+def test_take_sum_stage_holds_whole_rows(k, rows):
+    assert pk.take_sum_rows_per_stage(k) == rows
+    assert rows * k <= pk.TAKE_STAGE_IDS
 
 
 # -- tools/probes.py on the CPU ------------------------------------------------------
@@ -262,7 +348,9 @@ def test_exp_vmem_take_on_cpu():
     recs = probes.exp_vmem_take("cpu", h=64, c=512, k=4)
     assert [r["dtype"] for r in recs] == ["bfloat16", "float32"]
     assert all(r["max_abs_err"] == 0.0 and r["rows"] == 512 for r in recs)
-    _untimed(recs, "ms", "m_rows_per_s", "library_ms")
+    assert all((r["filler"], r["stages"]) == ("cp.async", pk.TAKE_STAGES)
+               for r in recs)
+    _untimed(recs, "ms", "m_rows_per_s", "l2_tb_per_s", "library_ms")
 
 
 def test_exp_dg_on_cpu():
@@ -338,17 +426,22 @@ def test_probe_tool_needs_a_card(monkeypatch, capsys):
     assert "no CUDA device" in capsys.readouterr().err
 
 
-def test_smoke_ptxas_summary_names_the_probe_kernels():
+def _smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_smoke_ptxas_summary_names_the_probe_kernels():
+    smoke = _smoke()
     prefix = "ptxas info    : Compiling entry function '_ZN3f2v50_GLOBAL__N__"
     names = [
-        "c28_17_take_sum_cu_f6deec6b15take_sum_kernelI13__nv_bfloat16Li4EEEv"
-        "PKT_PKiPfii",
-        "c28_17_tile_force_tc_cu_f6deec6b20tile_force_tc_kernelIfEEvPKfPKT_"
-        "PKifPfii",
+        "c28_17_take_sum_cu_f6deec6b15take_sum_kernelI13__nv_bfloat16EEvPKT_"
+        "PKiPfiii",
+        "c28_17_tile_force_tc_cu_f6deec6b20tile_force_tc_kernelIfEEvN3f2v12_"
+        "GLOBAL__N_18TileArgsE",
         "c28_17_resident_gather_cu_f6deec6b22resident_gather_kernelILi32EEEv"
         "PK5uint4PKiPS2_l",
         "c28_17_read_sum_cu_f6deec6b24read_sum_partial_kernelI13__nv_bfloat16"
@@ -359,8 +452,36 @@ def test_smoke_ptxas_summary_names_the_probe_kernels():
                     "ptxas info    : Used 40 registers, used 0 barriers"
                     for n in names)
     assert [s.split(":")[0] for s in smoke.ptxas_summary(log)] == [
-        "take_sum_kernel<bf16, 4>", "tile_force_tc_kernel<f32>",
+        "take_sum_kernel<bf16>", "tile_force_tc_kernel<f32>",
         "resident_gather_kernel<32>", "read_sum_partial_kernel<bf16, 128>",
         "read_sum_final_kernel<128>"]
     assert set(smoke.CUDA_KERNELS) >= {s.split("<")[0] for s in
                                        smoke.ptxas_summary(log)}
+
+
+def test_smoke_take_sum_bound_rejects_planted_faults():
+    """chip_smoke.py's take_sum check on the CPU wrapper: the true output
+    meets the bound exactly, and both planted faults (the last of K rows
+    skipped, each ring stage one row short) fail it."""
+    smoke = _smoke()
+    rng = np.random.default_rng(8)
+    tbl, _ = _table(rng, (64, D), "bfloat16")
+    idx = torch.from_numpy(rng.integers(0, 64, (10, 16)).astype(np.int32))
+    got = pk.take_sum(tbl, idx)
+    assert smoke.bound_ratio(got, pk.take_sum_terms(tbl, idx)) == 0.0
+    skip, short = smoke.take_sum_planted_fault_ratios(tbl, idx, got)
+    assert skip > 1.0 and short > 1.0
+
+
+def test_smoke_tile_table_bound_rejects_planted_faults(tile_table):
+    """chip_smoke.py's tile table check on the CPU wrapper: both planted
+    faults (each row's last slot skipped, the first entry skipped) fail the
+    bound, and the first entry is the widest part."""
+    smoke = _smoke()
+    work = tile_table[0]
+    got = pk.tile_force_tc_table(work, STEP)
+    for out, part in zip(got, work.parts):
+        assert smoke.bound_ratio(out, pk.tile_force_tc_terms(*part, STEP),
+                                 smoke.TC_RTOL) == 0.0
+    skip, first = smoke.tile_table_planted_fault_ratios(work, got, STEP)
+    assert skip > 1.0 and first > 1.0
