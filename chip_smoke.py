@@ -5,8 +5,8 @@
 Drives ``force2vec_tpu_torch``'s three sync paths at full width, on
 ``bench.py``'s graph (131,072-vertex power-law graph, 2,097,122 edges) with
 its configuration (dim 128, ns 5, bf16 gathers, min_width 8,
-hub_width 128), and the benchmark probes (``tools/probes.py``) at the
-shapes the JAX tools ran:
+hub_width 128), the benchmark probes (``tools/probes.py``) at the
+shapes the JAX tools ran, and the file path from a graph file to scores:
 
 1. checks for a card and prints its name and power limit;
 2. builds the CUDA kernels from ``force2vec_tpu_torch/ops/csrc`` with nvcc
@@ -61,6 +61,22 @@ path C, the probes (``python3 -m force2vec_tpu_torch.tools.probes``):
     kernel, plain version and library call; ``take_sum`` at each ring
     depth tried, with its gathered rows/s and TB/s from L2.
 
+path D, the file path (a graph file in, an ``.embd`` out, scored), at the
+main path's configuration:
+
+13. writes the bench graph with ``write_mtx`` and reads it back with
+    ``load_graph``: the native parser (built with g++ at first use), the
+    same rowptr and colids;
+14. trains 50 iterations on the loaded graph with exact launch counts, X
+    finite, edges closer than random pairs;
+15. writes the ``.embd`` with the native writer and reads it back, every
+    value within the text's rounding;
+16. scores the read-back X and a random-normal control X on the card:
+    link prediction (``link_prediction_dataset`` then ``fit_and_score``,
+    the two halves of ``link_prediction_scores``, timed apart) and
+    reconstruction accuracy over 1,000 vertices; then the KMeans sweep of
+    ``clustering_scores`` over k in [2, 9).
+
 The quality margins are half of what the JAX package reaches on the CPU
 with the same graph, configuration and iteration count
 (``scripts/jax_quality_reference.py``).  Every phase raises on failure, so
@@ -70,15 +86,25 @@ the kernels; the last line is ``{"ok": true, "device": {...}}``.
 
 import dataclasses
 import json
+import os
 import re
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from force2vec_tpu_torch.graphs import synth_powerlaw_graph
+from force2vec_tpu_torch.eval.clustering import clustering_scores
+from force2vec_tpu_torch.eval.linkpred import (fit_and_score,
+                                               link_prediction_dataset)
+from force2vec_tpu_torch.eval.reconstruction import (
+    graph_reconstruction_accuracy)
+from force2vec_tpu_torch.graphs import io as gio
+from force2vec_tpu_torch.graphs import (load_graph, native, read_embeddings,
+                                        synth_powerlaw_graph)
+from force2vec_tpu_torch.graphs.tools import write_mtx
 from force2vec_tpu_torch.models.forces import MAXBOUND, get_model
 from force2vec_tpu_torch.ops import _build, force_kernels as fk
 from force2vec_tpu_torch.ops import probe_kernels as pk
@@ -123,6 +149,25 @@ QUALITY_MARGIN = 0.41
 PV_QUALITY_MARGIN = 0.41
 RWALK_DOT_MARGIN = 0.0136
 QUALITY_PAIRS = 100_000
+# Path D's scores, half of the JAX package's margins on the CPU for tdist
+# after 50 iterations (scripts/jax_quality_reference.py, scikit-learn):
+# link-prediction AUC 0.7356724519302614 (margin over 0.5: 0.2357);
+# reconstruction accuracy over 1,000 vertices 0.02461148112908341 against
+# 0.00012686330478908975 for the control X (margin 0.0245).  The control's
+# AUC there: 0.5003783300419666.
+JAX_LINKPRED_AUC = 0.7356724519302614
+JAX_RECON = 0.02461148112908341
+JAX_RECON_CONTROL = 0.00012686330478908975
+AUC_MARGIN = 0.5 * (JAX_LINKPRED_AUC - 0.5)
+RECON_MARGIN = 0.5 * (JAX_RECON - JAX_RECON_CONTROL)
+CONTROL_AUC_TOL = 0.02  # the control X's AUC lies within 0.5 ± this
+CONTROL_SEED = 0  # numpy seed of the [n, 128] standard-normal control X
+RECON_VERTICES = 1000
+CLUSTER_KS = range(2, 9)
+# ``%.6g`` keeps 6 significant digits: off by at most 5e-6 of the value,
+# and the f32 parse of the text adds at most 2^-24 of it more
+EMBD_RTOL = 5e-6 + 2.0**-24
+EMBD_ATOL = 1e-30
 # slot-0 share of the first walk step against its expectation (its
 # sampling spread is ~7e-4 over the bench graph's 131,072 rows)
 WALK_UNIFORM_TOL = 0.01
@@ -1069,6 +1114,115 @@ def tile_force_tc_phase(graph, dev, card):
                 library_ms=None, bound_ms=b_ms, bound_by=by)
 
 
+# -- path D: a graph file in, an .embd out, scored on the card -------------------
+
+
+def score_phase(graph, x, dev, what, card):
+    """Link prediction and reconstruction of ``x`` on the card, each timed;
+    returns (scores, reconstruction accuracy)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    X, y = link_prediction_dataset(graph, x, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    scores = fit_and_score(X, y)
+    t2 = time.perf_counter()
+    rows = len(y)
+    del X, y
+    recon = graph_reconstruction_accuracy(graph, x, RECON_VERTICES,
+                                          device=dev)
+    t3 = time.perf_counter()
+    check(all(np.isfinite(v) for v in scores.values()) and np.isfinite(recon),
+          f"{what}: a score is not finite: {scores}, {recon}")
+    say(f"link prediction {what}: {rows} rows, data build {t1 - t0:.3f} s, "
+        f"fit and score {t2 - t1:.3f} s; accuracy {scores['accuracy']:.6f} "
+        f"f1_macro {scores['f1_macro']:.6f} f1_micro {scores['f1_micro']:.6f} "
+        f"auc {scores['auc']:.6f}; reconstruction accuracy ({RECON_VERTICES} "
+        f"vertices) {recon:.6f} in {t3 - t2:.3f} s [{card}]")
+    return scores, recon
+
+
+def file_path(graph, dev, card):
+    """Path D: the bench graph through a .mtx file, 50 training iterations
+    with exact launch counts, the .embd round trip, and the scores of the
+    trained X against a random-normal control, all on the card."""
+    t0 = time.perf_counter()
+    check(native.get_lib() is not None, "the native graph loader did not "
+                                        "build (g++)")
+    say(f"native graph loader: {time.perf_counter() - t0:.3f} s "
+        f"-> {native.library_path().name}")
+    with tempfile.TemporaryDirectory() as tmp:
+        mtx = os.path.join(tmp, "bench.mtx")
+        t0 = time.perf_counter()
+        write_mtx(graph, mtx)
+        t1 = time.perf_counter()
+        loaded = load_graph(mtx)
+        t2 = time.perf_counter()
+        check(gio.last_parser == "native",
+              f"load_graph used the {gio.last_parser} parser, not the native")
+        check(loaded.n == graph.n
+              and np.array_equal(loaded.rowptr, graph.rowptr)
+              and np.array_equal(loaded.colids, graph.colids),
+              "the loaded graph differs from the generator's")
+        say(f"graph file: write_mtx {t1 - t0:.3f} s "
+            f"({os.path.getsize(mtx) / 1e6:.1f} MB), load_graph {t2 - t1:.3f} "
+            f"s ({gio.last_parser} parser), n={loaded.n} nnz={loaded.nnz}, "
+            f"rowptr and colids equal the generator's [{card}]")
+
+        fv = SyncForce2Vec(loaded, BENCH_CONFIG, MIN_WIDTH, HUB_WIDTH,
+                           device=dev)
+        emb, counts = train_phase(fv, {
+            "ell_edge_force": TRAIN_ITERS, "grouped_rep_force": TRAIN_ITERS,
+            "ell_sample_force": 0}, card)
+        distance_gap_check(loaded, emb, QUALITY_MARGIN, "file path")
+
+        embd = os.path.join(tmp, "bench.embd")
+        host = emb.cpu().numpy()
+        t0 = time.perf_counter()
+        check(native.write_embd_native(embd, host),
+              "the native .embd writer failed")
+        t1 = time.perf_counter()
+        back = read_embeddings(embd)
+        t2 = time.perf_counter()
+        check(back.shape == host.shape, f".embd read back as {back.shape}")
+        off = np.abs(back.astype(np.float64) - host) > (
+            EMBD_ATOL + EMBD_RTOL * np.abs(host.astype(np.float64)))
+        check(not off.any(), f".embd round trip: {int(off.sum())} values off "
+                             "by more than the text's rounding")
+        say(f".embd: native write {t1 - t0:.3f} s "
+            f"({os.path.getsize(embd) / 1e6:.1f} MB), read {t2 - t1:.3f} s, "
+            f"every value within {EMBD_RTOL:.3e} relative [{card}]")
+
+    control = np.random.default_rng(CONTROL_SEED).standard_normal(
+        back.shape).astype(np.float32)
+    trained, recon = score_phase(loaded, back, dev, "trained X", card)
+    ctrl, recon_ctrl = score_phase(loaded, control, dev, "control X", card)
+    say(f"path D scores: auc {trained['auc']:.6f} (JAX {JAX_LINKPRED_AUC:.6f};"
+        f" needs > {0.5 + AUC_MARGIN:.6f}), control auc {ctrl['auc']:.6f} "
+        f"(needs 0.5 +- {CONTROL_AUC_TOL}); reconstruction {recon:.6f} - "
+        f"control {recon_ctrl:.6f} = {recon - recon_ctrl:.6f} (JAX "
+        f"{JAX_RECON - JAX_RECON_CONTROL:.6f}; needs >= {RECON_MARGIN:.6f}) "
+        f"[{card}]")
+    check(trained["auc"] - 0.5 >= AUC_MARGIN, "path D: link-prediction AUC "
+          "below half of the JAX package's margin")
+    check(abs(ctrl["auc"] - 0.5) <= CONTROL_AUC_TOL,
+          f"path D: the control X's AUC {ctrl['auc']:.4f} is not ~0.5")
+    check(recon - recon_ctrl >= RECON_MARGIN, "path D: reconstruction "
+          "margin below half of the JAX package's")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clust = clustering_scores(loaded, back, k_range=CLUSTER_KS, device=dev)
+    t1 = time.perf_counter()
+    q = clust["best_modularity"]
+    say(f"clustering (KMeans k in [{CLUSTER_KS.start}, {CLUSTER_KS.stop}), "
+        f"3 inits each): best modularity {q:.6f} at k="
+        f"{clust['best_k']:.0f}, {t1 - t0:.3f} s [{card}]")
+    check(np.isfinite(q) and -0.5 <= q <= 1.0,
+          f"path D: best modularity {q} outside [-0.5, 1]")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check needs the card",
@@ -1118,9 +1272,13 @@ def main() -> int:
                 "resident_gather": resident_gather_phase(dev, card),
                 "read_sum": read_sum_phase(graph, dev, card)}
     say(f"path C (probes): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts_file = file_path(graph, dev, card)
+    say(f"path D (file): {time.perf_counter() - t0:.1f} s")
 
     paths = {"main": counts_main, "per_vertex": counts_pv,
-             "rwalk": counts_rw, "probes": counts_probes}
+             "rwalk": counts_rw, "probes": counts_probes,
+             "file": counts_file}
 
     def entry(name, source, replaces, measured):
         by_path = {p: c[name] for p, c in paths.items()}

@@ -12,11 +12,31 @@ Quick start::
     fv = SyncForce2Vec(synth_powerlaw_graph(), cfg, hub_width=128,
                        device="cuda")
     emb = fv.train(iters=100, seed=1)  # [n, 128] tensor on the card
+
+A graph file in, an ``.embd`` out, scored on the card::
+
+    from force2vec_tpu_torch import load_graph, write_embeddings
+    from force2vec_tpu_torch.eval import link_prediction_scores
+    g = load_graph("cora.mtx")
+    emb = SyncForce2Vec(g, cfg, hub_width=128).train(iters=100)
+    write_embeddings("cora.embd", emb)
+    print(link_prediction_scores(g, emb))  # accuracy, F1, AUC
 """
 
-from force2vec_tpu_torch.graphs.csr import Graph, SyncLayout
+from force2vec_tpu_torch.graphs import Graph, SyncLayout, load_graph, read_mtx
+from force2vec_tpu_torch.graphs.io import read_embeddings, write_embeddings
 from force2vec_tpu_torch.models.forces import get_model
 from force2vec_tpu_torch.train.sync import SyncForce2Vec
 from force2vec_tpu_torch.train.trainer import TrainConfig
 
-__all__ = ["Graph", "SyncLayout", "get_model", "TrainConfig", "SyncForce2Vec"]
+__all__ = [
+    "Graph",
+    "SyncLayout",
+    "load_graph",
+    "read_mtx",
+    "read_embeddings",
+    "write_embeddings",
+    "get_model",
+    "TrainConfig",
+    "SyncForce2Vec",
+]

@@ -5,7 +5,8 @@ package's ``__init__`` imports JAX, which the GPU host does not have, so
 the port carries its own copy and ``tests/test_torch_layout.py`` pins its
 arrays equal to the JAX package's.
 
-Left out on purpose: the hot/cold gather split (``hot_rows > 0``), whose
+``Graph`` has all of the JAX ``Graph``'s methods.  Left out on purpose: the
+hot/cold gather split (``hot_rows > 0``), whose
 only justification was a TPU gather-tier measurement, and the batch
 trainer's ``DeviceGraph``.
 """
@@ -66,6 +67,42 @@ class Graph:
         np.cumsum(rowptr, out=rowptr)
         return Graph(n=n, rowptr=rowptr, colids=cols.astype(np.int32),
                      values=vals)
+
+    def shuffled_ids(self, seed: int = 0) -> "Graph":
+        """Per-row shuffle of colids (CSR::shuffleIds,
+        sample/CSR.h:430-447): a random sort key within each row, which
+        the stable lexsort on rows turns into an independent shuffle."""
+        rng = np.random.default_rng(seed)
+        rows = np.repeat(np.arange(self.n, dtype=np.int64), self.degrees)
+        order = np.lexsort((rng.random(self.nnz), rows))
+        values = self.values[order] if self.values is not None else None
+        return Graph(self.n, self.rowptr.copy(), self.colids[order], values)
+
+    def induced_subgraph(self, nodes: np.ndarray) -> "Graph":
+        """CSR of the subgraph induced by ``nodes`` (relabeled 0..k-1).
+        ``np.arange(size)`` gives the first-``size``-vertices subsample of
+        the reference's big-graph link prediction
+        (performancescores/biglinkprediction.py)."""
+        nodes = np.asarray(nodes, dtype=np.int64)
+        remap = np.full(self.n, -1, dtype=np.int64)
+        remap[nodes] = np.arange(len(nodes))
+        src = np.repeat(np.arange(self.n), self.degrees)
+        keep = (remap[src] >= 0) & (remap[self.colids] >= 0)
+        rows = remap[src[keep]]
+        cols = remap[self.colids[keep]]
+        vals = self.values[keep] if self.values is not None else None
+        return Graph.from_coo(rows, cols, vals, n=len(nodes))
+
+    def is_sorted(self) -> bool:
+        """Row-wise sortedness (CSR::Sorted, Test/Force2Vec.cpp:123): a
+        decrease in colids is allowed only at a row's first edge."""
+        if self.nnz < 2:
+            return True
+        dec = np.flatnonzero(self.colids[1:].astype(np.int64)
+                             < self.colids[:-1].astype(np.int64)) + 1
+        if not len(dec):
+            return True
+        return bool(np.all(np.isin(dec, self.rowptr[1:-1])))
 
 
 def _round_up(x: int, m: int) -> int:

@@ -104,7 +104,7 @@ class SyncForce2Vec:
         hub_width: int = 256,
         row_align: int = 8,
         *,
-        device,
+        device="cuda",
     ):
         self.graph = graph
         self.config = config

@@ -16,7 +16,15 @@ the statistic ``chip_smoke.py`` checks, over the same 100,000 random pairs:
   edges minus over random pairs, the quantity its forces optimise; the
   distance gap too, for the record.
 
-Needs JAX and takes a few minutes of CPU; it never runs on the card.
+For ``tdist`` it also scores the trained X as ``chip_smoke.py``'s path D
+does, with the JAX package's evaluation (scikit-learn): link-prediction
+scores (``link_prediction_scores``, Hadamard features, seed 0) and
+``graph_reconstruction_accuracy(num_vertices=1000)``, for the trained X and
+for a random-normal control X of the same shape
+(``np.random.default_rng(CONTROL_SEED)``, as path D draws it).
+
+Needs JAX and scikit-learn and takes a few minutes of CPU; it never runs on
+the card.
 """
 
 from __future__ import annotations
@@ -39,10 +47,15 @@ import numpy as np  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
+from force2vec_tpu.eval.linkpred import link_prediction_scores  # noqa: E402
+from force2vec_tpu.eval.reconstruction import (  # noqa: E402
+    graph_reconstruction_accuracy)
 from force2vec_tpu.train.sync import SyncForce2Vec  # noqa: E402
 from force2vec_tpu.train.trainer import TrainConfig  # noqa: E402
 
 PAIRS = 100_000  # chip_smoke.QUALITY_PAIRS, drawn the same way
+CONTROL_SEED = 0  # chip_smoke.CONTROL_SEED
+RECON_VERTICES = 1000
 BASE = TrainConfig(dim=128, model="tdist", ns=5, batch_size=256,
                    gather_dtype="bfloat16")
 CONFIGS = {
@@ -84,6 +97,23 @@ def stats(graph, emb) -> dict:
             "dot_gap": dot_edge - dot_rand}
 
 
+def eval_stats(graph, emb) -> dict:
+    """Link-prediction scores and reconstruction accuracy of ``emb`` and of
+    the random-normal control, as ``chip_smoke.py``'s path D takes them."""
+    control = np.random.default_rng(CONTROL_SEED).standard_normal(
+        emb.shape).astype(np.float32)
+    out = {}
+    for what, x in (("trained", emb), ("control", control)):
+        t0 = time.perf_counter()
+        out[f"linkpred_{what}"] = link_prediction_scores(graph, x)
+        out[f"recon_{what}"] = graph_reconstruction_accuracy(
+            graph, x, num_vertices=RECON_VERTICES)
+        out[f"eval_seconds_{what}"] = time.perf_counter() - t0
+    out["auc_margin"] = out["linkpred_trained"]["auc"] - 0.5
+    out["recon_margin"] = out["recon_trained"] - out["recon_control"]
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=50)
@@ -103,6 +133,8 @@ def main(argv=None) -> int:
         emb = fv.train(iters=args.iters, seed=args.seed)
         res[name] = {**stats(graph, emb), "finite": bool(np.isfinite(emb).all()),
                      "seconds": time.perf_counter() - t0}
+        if name == "tdist":
+            res[name].update(eval_stats(graph, np.asarray(emb)))
         print(name, json.dumps(res[name]), flush=True)
     if args.json:
         Path(args.json).write_text(json.dumps(res, indent=1))

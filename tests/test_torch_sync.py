@@ -299,7 +299,8 @@ def test_unported_options_raise(graph):
 
 def test_package_imports_no_jax():
     """Every module of the port, found by walking the package, and
-    chip_smoke.py import neither JAX nor the JAX package."""
+    chip_smoke.py import neither JAX nor the JAX package, nor, at import
+    time, scikit-learn or matplotlib (which the card's host lacks)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import force2vec_tpu_torch as pkg\n"
@@ -307,10 +308,15 @@ def test_package_imports_no_jax():
         "                                              pkg.__name__ + '.')]\n"
         "for name in mods + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
-        "assert 'force2vec_tpu_torch.ops.probe_kernels' in mods, mods\n"
-        "assert 'force2vec_tpu_torch.tools.probes' in mods, mods\n"
+        "want = ['ops.probe_kernels', 'tools.probes', 'graphs.io',\n"
+        "        'graphs.native', 'graphs.tools', 'native', 'eval',\n"
+        "        'eval._fit', 'eval.linkpred', 'eval.nodeclass',\n"
+        "        'eval.clustering', 'eval.reconstruction', 'eval.visualize']\n"
+        "missing = [w for w in want if 'force2vec_tpu_torch.' + w not in mods]\n"
+        "assert not missing, (missing, mods)\n"
         "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'jaxlib', 'force2vec_tpu')]\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'force2vec_tpu',\n"
+        "                              'sklearn', 'matplotlib')]\n"
         "assert not bad, bad\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
