@@ -135,10 +135,13 @@ configuration with f32 gathers (the vertex schedule's):
     counted and held to their plain versions, the slices put in place by
     the runner's permutation against the single-card iteration; then two
     gloo ranks sharing the card at tp = 2: one iteration through the
-    split-dim kernels (``tp_pair_partial``, ``all_reduce``,
-    ``tp_pair_force``) with exact launch counts, each launch against its
-    plain version, X against the single-card iteration; the two kernels
-    timed at a tp = 2 rank's shapes beside their plain versions and bounds;
+    split-dim kernels (one ``tp_pair_partial`` over the attraction's and
+    the repulsion's tables laid end to end, one ``all_reduce``, a
+    ``tp_pair_force`` for each) with exact launch and all_reduce counts,
+    each launch on the runner's own tables against its plain version, X
+    against the single-card iteration; the two kernels timed at a tp = 2
+    rank's shapes, back to back and queued, beside their plain versions
+    and bounds, and an iteration's three launches summed;
 27. (F4) with two or more cards, min(count, 4) NCCL ranks (even): a
     vertex iteration against F1's single-card result, and the sync
     iteration at dp = ranks and at tp = 2 against F5's, their launch
@@ -157,7 +160,9 @@ path G, every width (``-dim`` any of 1 to ``force_kernels.KERNEL_MAX_DIM``,
     update bit for bit, the pair over the edge table), every other model
     on the widest bucket; each output's padding columns 0; at dim 100 the
     bound rejects each kernel's result held to its plain terms with the
-    last real column skipped;
+    last real column skipped (the split-dim pair's at every dim); every
+    kernel, the pair among them, refuses x of 12 columns and x off its
+    16-byte alignment;
 29. (G2) 50 sync iterations with exact launch counts and the JAX
     package's statistic at the same width: tdist at dim 32, tdist ``-bs
     1`` at dim 256, rwalk at dim 100 (its walk attraction then held to its
@@ -340,6 +345,10 @@ F_SHARDS = 4  # F2: the shards of one layout run on one card
 F_MAX_RANKS = 4  # F4: NCCL ranks, one per card, where there are two or more
 F_DP = 4  # F5: the dp slices of one sync layout run on one card
 F_TP = 2  # F5: gloo ranks sharing this card, each with its 1/tp of the dim
+# a tp rank's iteration: one tp_pair_partial over the attraction's and the
+# repulsion's tables laid end to end, one all_reduce, a tp_pair_force each
+TP_ITERATION_COUNTS = {"tp_pair_partial": 1, "tp_pair_force": 2,
+                       "tp_all_reduce": 1}
 VERTEX_CLI_ITERS = 5
 # path G, every width: G1 and G4 at these dims (every row class of
 # csrc/common.cuh::with_row_class in bf16 and f32 gathers, dim 64 aside,
@@ -2291,7 +2300,9 @@ def _multi_rank(rank, world, x_host, pool, sync_x, negs):
         reset_counts()
         s.run_iteration(xs, negs_t)
         torch.cuda.synchronize(dev)
-        out[f"counts_tp{tp}"] = read_counts()
+        # the launches and, beside them, the pair scalars' all_reduces
+        out[f"counts_tp{tp}"] = {**read_counts(),
+                                 "tp_all_reduce": s.tp_all_reduces}
         out[f"sync_tp{tp}"] = s.unpad_embedding(xs)
         out[f"ms_tp{tp}"] = cuda_ms(lambda: s.run_iteration(xs, negs_t),
                                     reps=10)
@@ -2341,7 +2352,7 @@ def multi_rank_phase(dev, card, x_host, pool, got_p1, sync_ref):
           and res["counts_tp1"]["grouped_rep_force"] == 1,
           "F4: the ranks did not launch the fused kernels")
     check(res["counts_tp2"] == {**{k: 0 for k in res["counts_tp2"]},
-                                "tp_pair_partial": 2, "tp_pair_force": 2},
+                                **TP_ITERATION_COUNTS},
           f"F4: the tp ranks' launches {res['counts_tp2']}")
     counts = {}
     for k in ("counts_v", "counts_tp1", "counts_tp2"):
@@ -2352,12 +2363,13 @@ def multi_rank_phase(dev, card, x_host, pool, got_p1, sync_ref):
 # -- F5: the dp × tp sync runner on one card --------------------------------
 
 
-def tp_partial_ratio(model, x, xg, table, got, rtol=SUM_RTOL):
+def tp_partial_ratio(model, x, xg, table, got, rtol=SUM_RTOL, skip=None):
     """``tp_pair_partial``'s ``got`` against its plain version: (max
     |err|, the max over slots of |got - plain| / (rtol · Σ_d |term|),
-    0 where they agree)."""
-    want = fk.tp_pair_partial_plain(model, "edge", x, xg, table)
-    ratio = 0.0
+    0 where they agree).  With ``skip`` a column, the plain version with
+    that column's terms left out (a planted fault the bound must reject),
+    the scale still the true terms'."""
+    err = ratio = 0.0
     for rb, nb, _, rows, width in table.entries.tolist():
         if rows * width == 0:
             continue
@@ -2365,10 +2377,15 @@ def tp_partial_ratio(model, x, xg, table, got, rtol=SUM_RTOL):
         xi = x[table.xi_row[rb: rb + rows].long()][:, None, :]
         xj = xg[nbr.long()].float()
         v = xi * xj if model.a_kind == "dot" else (xi - xj) ** 2
-        e = (got[nb: nb + rows * width] - want[nb: nb + rows * width]).abs()
-        scale = rtol * v.abs().sum(dim=-1).reshape(-1)
+        scale = rtol * v.abs().sum(dim=-1)
+        if skip is not None:
+            v[..., skip] = 0.0
+        real = fk._slot_mask(nbr, table.deg[rb: rb + rows])[:, :, 0]
+        want = torch.where(real, v.sum(dim=-1), 0.0)
+        e = (got[nb: nb + rows * width].view(rows, width) - want).abs()
+        err = max(err, float(e.max()))
         ratio = max(ratio, float(torch.where(e == 0, 0.0, e / scale).max()))
-    return max_err(got, want), ratio
+    return err, ratio
 
 
 def tp_force_ratio(model, kind, x, xg, table, a, invd, step, got):
@@ -2393,18 +2410,41 @@ def tp_force_ratio(model, kind, x, xg, table, a, invd, step, got):
 
 
 def tp_tables(fv, negs):
-    """The tp sync iteration's two work tables: the attraction's
-    (``edge_table``) and the repulsion's (each row's group's ids)."""
-    return (("edge", fv.edge_table),
-            ("sample", fk.EdgeWorkTable.single(
-                negs[fv._gid], fv._ns_deg, fv._all_rows, fv.layout.n_pad)))
+    """A tp iteration's work tables, as ``SyncForce2Vec._tp_tables`` lays
+    them end to end, from a runner of one rank: (the concatenated table,
+    [(kind, view, first slot)] for the attraction (``edge_table``) and the
+    repulsion (each row with its group's ids))."""
+    cat, views = fk.concat_work_tables([fv.edge_table, fk.EdgeWorkTable.single(
+        negs[fv._gid], fv._ns_deg, fv._all_rows, fv.layout.n_pad)])
+    first = views[0].nbr.shape[0]
+    return cat, [("edge", views[0], 0), ("sample", views[1], first)]
+
+
+def tp_checks(model, x, xg, cat, halves, invd, step, reduce=None):
+    """The tp iteration's launches on its tables, each against its plain
+    version: one ``tp_pair_partial`` over ``cat``, the scalars reduced
+    (``reduce``, an ``all_reduce`` over tp, in place), then
+    ``tp_pair_force`` for each half on its slice.  {kernel: (max |err|,
+    bound ratio)}, the worst over the launches."""
+    part = fk.tp_pair_partial(model, x, xg, cat)
+    res = {"tp_pair_partial": tp_partial_ratio(model, x, xg, cat, part)}
+    if reduce is not None:
+        reduce(part)
+    errs = []
+    for kind, t, s in halves:
+        a = part[s: s + t.nbr.shape[0]]
+        got = fk.tp_pair_force(model, kind, x, xg, t, a, invd, step)
+        errs.append(tp_force_ratio(model, kind, x, xg, t, a, invd, step, got))
+    res["tp_pair_force"] = tuple(max(e[i] for e in errs) for i in (0, 1))
+    return res
 
 
 def _tp_rank(rank, world, x_host, negs):
     """F5, one of ``world`` gloo ranks on this one card, tp = world: one
-    sync iteration through the split-dim kernels with its launch counts,
-    then each launch on that iteration's operands against its plain
-    version.  Rank 0 returns the results."""
+    sync iteration through the split-dim kernels with its launch and
+    all_reduce counts, then the iteration's launches on its operands (the
+    runner's own tables, holding that iteration's ids) against their
+    plain versions.  Rank 0 returns the results."""
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     fv = SyncForce2Vec(synth_powerlaw_graph(), BENCH_CONFIG, MIN_WIDTH,
@@ -2414,76 +2454,96 @@ def _tp_rank(rank, world, x_host, negs):
     reset_counts()
     fv.run_iteration(x, negs)
     torch.cuda.synchronize(dev)
-    counts = read_counts()
+    counts = {**read_counts(), "tp_all_reduce": fv.tp_all_reduces}
     got = fv.unpad_embedding(x)
-    xg = x0.to(torch.bfloat16)
-    checks = {}
-    for kind, table in tp_tables(fv, negs):
-        part = fk.tp_pair_partial(fv.model, kind, x0, xg, table)
-        pe, pr = tp_partial_ratio(fv.model, x0, xg, table, part)
-        dist.all_reduce(part, group=fv.spmd.tp)
-        out = fk.tp_pair_force(fv.model, kind, x0, xg, table, part,
-                               fv.inv_deg, fv.lr)
-        checks[kind] = (pe, pr) + tp_force_ratio(
-            fv.model, kind, x0, xg, table, part, fv.inv_deg, fv.lr, out)
+    first = fv._tp_att.nbr.shape[0]
+    checks = tp_checks(
+        fv.model, x0, x0.to(torch.bfloat16), fv._tp_cat,
+        [("edge", fv._tp_att, 0), ("sample", fv._tp_rep, first)],
+        fv.inv_deg, fv.lr,
+        reduce=lambda part: dist.all_reduce(part, group=fv.spmd.tp))
     if rank:
         return None
     return dict(got=got.cpu().numpy(), counts=counts, checks=checks)
 
 
-def tp_work(model, kind, x, xg, table, a, invd, step):
-    """{kernel: (call, plain call, bytes, operations)} of the split-dim
-    pair over ``table`` on this rank's columns of ``x``: the bytes each
-    function must move (its rows, ids and scalars) and its f32
-    operations."""
+def tp_partial_work(model, x, xg, table):
+    """(call, plain call, bytes, operations) of ``tp_pair_partial`` over
+    ``table`` on this rank's columns of ``x``: the x and gather rows it
+    reads, the real slots' ids, deg and xi_row, every slot's scalar
+    written; and its f32 operations."""
+    launches = [(nbr, deg, xi) for nbr, deg, xi, _ in table.parts()]
+    nbytes, real = ell_work(launches, x, xg, False)
+    out_bytes = sum(r.numel() for _, _, r in launches) * x.shape[1] * 4
+    scalar = (2 if model.a_kind == "dot" else 3) * x.shape[1]
+    return (lambda: fk.tp_pair_partial(model, x, xg, table),
+            lambda: fk.tp_pair_partial_plain(model, x, xg, table),
+            nbytes - out_bytes + table.nbr.numel() * 4, real * scalar)
+
+
+def tp_force_work(model, kind, x, xg, table, a, invd, step):
+    """(call, plain call, bytes, operations) of ``tp_pair_force`` over
+    ``table``: the rows, ids and output an ``ell_*_force`` over it moves,
+    the real slots' scalars read; and its f32 operations without the
+    scalars'."""
     d = x.shape[1]
     launches = [(nbr, deg, xi) for nbr, deg, xi, _ in table.parts()]
     with_invd = kind == "edge" and model.a_kind == "dot"
     nbytes, real = ell_work(launches, x, xg, with_invd)
-    out_bytes = table.out_rows * d * 4
     scalar = (2 if model.a_kind == "dot" else 3) * d
-    return {
-        "tp_pair_partial": (
-            lambda: fk.tp_pair_partial(model, kind, x, xg, table),
-            lambda: fk.tp_pair_partial_plain(model, kind, x, xg, table),
-            nbytes - out_bytes + table.nbr.numel() * 4, real * scalar),
-        "tp_pair_force": (
-            lambda: fk.tp_pair_force(model, kind, x, xg, table, a, invd,
+    return (lambda: fk.tp_pair_force(model, kind, x, xg, table, a, invd,
                                      step),
             lambda: fk.tp_pair_force_plain(model, kind, x, xg, table, a,
                                            invd, step),
-            nbytes + real * 4, real * (term_flops(model, kind, d) - scalar)),
-    }
+            nbytes + real * 4, real * (term_flops(model, kind, d) - scalar))
 
 
 def tp_timing(one, x, negs, card, errs):
     """The two split-dim kernels timed on this card at the shapes a tp = 2
-    rank gives them on the main path (its half of the columns, the
-    attraction's work table, bf16 gathers), beside their plain versions
-    and their bounds; the repulsion's launches beside them.  Returns the
-    kernels' ``kernels`` line records."""
+    rank gives them on the main path (its half of the columns, bf16
+    gathers), back to back and queued ahead of the device, beside their
+    plain versions and their bounds: ``tp_pair_partial`` over the
+    attraction's work table, over the repulsion's and over the two laid
+    end to end (the launch an iteration makes), ``tp_pair_force`` over
+    each; then the three launches of an iteration summed.  Returns the
+    kernels' ``kernels`` line records (the attraction's launches)."""
     model, step = one.model, one.lr
     d = x.shape[1] // F_TP
     half = x[:, :d].contiguous()
     xg = half.to(torch.bfloat16)
-    rec, lines = {}, []
-    for kind, table in tp_tables(one, negs):
-        a = sum(fk.tp_pair_partial(model, kind, x[:, c: c + d].contiguous(),
-                                   x[:, c: c + d].to(torch.bfloat16), table)
-                for c in range(0, x.shape[1], d))
-        for name, (kern, plain, b, ops) in tp_work(
-                model, kind, half, xg, table, a, one.inv_deg, step).items():
-            k_ms = cuda_ms(kern, reps=20)
-            p_ms = cuda_ms(plain, reps=3)
-            b_ms, by = bound_ms(b, ops)
-            lines.append(f"{name} ({kind}, d={d}): {k_ms:.4f} ms, plain "
-                         f"{p_ms:.4f}, bound {b_ms:.4f} ({by})")
-            if kind == "edge":  # the record: the attraction's launch
-                rec[name] = {"max_abs_err": errs[name], "ms": k_ms,
-                             "plain_ms": p_ms, "bound_ms": b_ms,
-                             "bound_by": by}
+    cat, halves = tp_tables(one, negs)
+    a = sum(fk.tp_pair_partial(model, x[:, c: c + d].contiguous(),
+                               x[:, c: c + d].to(torch.bfloat16), cat)
+            for c in range(0, x.shape[1], d))
+    work = [("tp_pair_partial", "both", tp_partial_work(model, half, xg,
+                                                        cat))]
+    for kind, t, s in halves:
+        work.append(("tp_pair_partial", kind,
+                     tp_partial_work(model, half, xg, t)))
+        work.append(("tp_pair_force", kind, tp_force_work(
+            model, kind, half, xg, t, a[s: s + t.nbr.shape[0]],
+            one.inv_deg, step)))
+    rec, lines, per_iter = {}, [], [0.0, 0.0]
+    for name, kind, (kern, plain, b, ops) in work:
+        k_ms = cuda_ms(kern, reps=20)
+        q_ms = queued_device_ms(kern, reps=20)
+        p_ms = cuda_ms(plain, reps=3)
+        b_ms, by = bound_ms(b, ops)
+        lines.append(f"{name} ({kind}, d={d}): {k_ms:.4f} ms (queued "
+                     f"{q_ms:.4f}), plain {p_ms:.4f}, bound {b_ms:.4f} "
+                     f"({by})")
+        if name == "tp_pair_force" or kind == "both":
+            per_iter = [per_iter[0] + k_ms, per_iter[1] + q_ms]
+        if kind == "edge":  # the record: the attraction's launch
+            rec[name] = {"max_abs_err": errs[name], "ms": k_ms,
+                         "queued_ms": q_ms, "plain_ms": p_ms,
+                         "bound_ms": b_ms, "bound_by": by}
     say("split-dim kernels at tp=2, one card: " + "; ".join(lines)
-        + f" [{card}]")
+        + f"; an iteration's launches (partial over both tables, the two "
+          f"forces): {per_iter[0]:.4f} ms back to back, {per_iter[1]:.4f} "
+          f"queued [{card}]")
+    for r in rec.values():
+        r["iteration_ms"], r["iteration_queued_ms"] = per_iter
     return rec
 
 
@@ -2565,19 +2625,16 @@ def sharded_sync_phase(graph, dev, card):
     tp_counts, checks = res["counts"], res["checks"]
     say(f"F5 tp={F_TP}, {F_TP} gloo ranks on this card "
         f"({time.perf_counter() - t0:.1f} s): rank 0 launches {tp_counts}; "
-        + "; ".join(f"{k}: partial max_abs_err={c[0]:.3e} bound_ratio="
-                    f"{c[1]:.4f}, force max_abs_err={c[2]:.3e} bound_ratio="
-                    f"{c[3]:.4f}" for k, c in checks.items())
+        + "; ".join(f"{k} max_abs_err={c[0]:.3e} bound_ratio={c[1]:.4f}"
+                    for k, c in checks.items())
         + f"; the iteration vs one card max |dX| {e_tp:.3e} [{card}]")
-    check(tp_counts == {**{k: 0 for k in tp_counts}, "tp_pair_partial": 2,
-                        "tp_pair_force": 2},
+    check(tp_counts == {**{k: 0 for k in tp_counts}, **TP_ITERATION_COUNTS},
           f"the tp ranks' launches {tp_counts}")
-    check(all(c[1] <= 1.0 and c[3] <= 1.0 for c in checks.values()),
+    check(all(c[1] <= 1.0 for c in checks.values()),
           "a split-dim launch exceeds its bound")
     check(e_tp < ITER_TOL, "the tp iteration differs from one card's")
-    errs = {"tp_pair_partial": max(c[0] for c in checks.values()),
-            "tp_pair_force": max(c[2] for c in checks.values())}
-    rec = tp_timing(one, x, negs_t, card, errs)
+    rec = tp_timing(one, x, negs_t, card,
+                    {k: c[0] for k, c in checks.items()})
     return dp_counts, tp_counts, rec, (x_host, negs, want)
 
 
@@ -2772,19 +2829,27 @@ def width_kernels(fv, dim, dtype, dev, faults):
         check(r <= 1.0, f"path G {what}: |err| exceeds the bound by "
                         f"{r:.3f}x")
         res[kernel] = [max(res[kernel][0], r), max(res[kernel][1], e)]
-        if faults and model.name == "tdist":
+        # the split-dim pair's fault at every row class, the others' at
+        # G_FAULT_DIM
+        if (faults or kernel.startswith("tp_")) and model.name == "tdist":
             f = g_ratio(model, dim, parts, fault=True)[1]
             check(f > 1.0, f"path G {what}: the bound passed the last real "
                            f"column skipped ({f:.3f})")
             fault[kernel] = f
 
     def tp_pair(model, kind, tab):
-        part = fk.tp_pair_partial(model, kind, x, xg, tab)
+        part = fk.tp_pair_partial(model, x, xg, tab)
         e, r = tp_partial_ratio(model, x, xg, tab, part, width_rtol(dim))
         check(r <= 1.0, f"path G tp_pair_partial {model.name} dim {dim}: "
                         f"bound ratio {r:.3f}")
         res["tp_pair_partial"] = [max(res["tp_pair_partial"][0], r),
                                   max(res["tp_pair_partial"][1], e)]
+        if model.name == "tdist":
+            f = tp_partial_ratio(model, x, xg, tab, part, width_rtol(dim),
+                                 skip=dim - 1)[1]
+            check(f > 1.0, f"path G tp_pair_partial dim {dim}: the bound "
+                           f"passed the last real column skipped ({f:.3f})")
+            fault["tp_pair_partial"] = f
         got = fk.tp_pair_force(model, kind, x, xg, tab, part, invd, step)
         note("tp_pair_force", got, model,
              tp_parts(model, kind, x, xg, tab, part, invd, step, got))
@@ -2853,6 +2918,49 @@ def width_kernels(fv, dim, dtype, dev, faults):
     return res, fault
 
 
+def width_refusals(fv, dev, card):
+    """G1's refusals: on the card every kernel, the split-dim pair as the
+    fused ones, takes rows of a multiple of ROW_ALIGN elements at 16-byte
+    aligned bases (the trainers hold X so); each wrapper must refuse x of
+    12 columns and x whose base is one f32 off that alignment with a
+    ValueError, launching nothing."""
+    n_pad, step, model = fv.layout.n_pad, 0.02, get_model("tdist")
+    b = widest_bucket(fv)
+    one = fk.EdgeWorkTable.single(b.nbr, b.deg, b.xi_row, n_pad)
+    a = torch.zeros(one.nbr.shape[0], device=dev)
+    group, rows = BENCH_CONFIG.batch_size, b.nbr.shape[0]
+
+    def calls(x):
+        xg = x.to(torch.bfloat16)
+        sg = xg[b.nbr[: -(-rows // group), :BENCH_CONFIG.ns].long()]
+        return {
+            "ell_edge_force": lambda: fk.ell_edge_force(
+                model, x, xg, b.nbr, b.deg, b.xi_row, fv.inv_deg, step),
+            "grouped_rep_force": lambda: fk.grouped_rep_force(
+                model, group, x[:rows], sg, step),
+            "ell_sample_force": lambda: fk.ell_sample_force(
+                model, x, xg, b.nbr, b.deg, b.xi_row, step),
+            "tp_pair_partial": lambda: fk.tp_pair_partial(model, x, xg, one),
+            "tp_pair_force": lambda: fk.tp_pair_force(
+                model, "edge", x, xg, one, a, fv.inv_deg, step)}
+
+    before = dict(fk.launch_counts)
+    cases = (("12 columns", padded_x(n_pad, 12, 3, dev)[:, :12].contiguous()),
+             ("a base 4 bytes off alignment",
+              torch.zeros(n_pad * 16 + 1, device=dev)[1:].view(n_pad, 16)))
+    for what, x in cases:
+        for name, call in calls(x).items():
+            try:
+                call()
+            except ValueError:
+                continue
+            check(False, f"path G1: {name} took x of {what} on the card")
+    check(fk.launch_counts == before, "path G1: a refused call launched")
+    say(f"path G1 refusals: each of {list(calls(cases[0][1]))} refuses x of "
+        f"{' and of '.join(w for w, _ in cases)} (ValueError, no launch) "
+        f"[{card}]")
+
+
 def width_times(fv, dim, dtype, dev) -> dict:
     """G4 at one width and gather dtype, tdist at the bench shapes: the
     three kernels as ``time_kernels`` times them and the split-dim pair
@@ -2869,10 +2977,13 @@ def width_times(fv, dim, dtype, dev) -> dict:
     rows = torch.arange(n_pad, dtype=torch.int32, device=dev)
     model = get_model("tdist")
     out = time_kernels(model, fv, x, xg, sg, idx, deg, rows, 0.02)
-    a = fk.tp_pair_partial(model, "edge", x, xg, fv.edge_table)
-    for name, (kern, plain, nbytes, ops) in tp_work(
-            model, "edge", x, xg, fv.edge_table, a, fv.inv_deg,
-            0.02).items():
+    a = fk.tp_pair_partial(model, x, xg, fv.edge_table)
+    for name, (kern, plain, nbytes, ops) in (
+            ("tp_pair_partial", tp_partial_work(model, x, xg,
+                                                fv.edge_table)),
+            ("tp_pair_force", tp_force_work(model, "edge", x, xg,
+                                            fv.edge_table, a, fv.inv_deg,
+                                            0.02))):
         b_ms, by = bound_ms(nbytes, ops)
         out[name] = (queued_device_ms(kern, reps=10), b_ms,
                      cuda_ms(plain, reps=2, warmup=1), by)
@@ -2969,6 +3080,7 @@ def widths_path(graph, dev, card):
                                "ell_sample_force", "tp_pair_partial",
                                "tp_pair_force")}
     t0 = time.perf_counter()
+    width_refusals(fv, dev, card)
     for dim in G_DIMS:
         for dtype in (torch.bfloat16, torch.float32):
             res, fault = width_kernels(fv, dim, dtype, dev,
@@ -2977,12 +3089,9 @@ def widths_path(graph, dev, card):
             t = str(dtype)[6:]
             for k, (ratio, err) in res.items():
                 ms, b_ms, p_ms, by = times[k]
-                # the repulsion's samples and x_i are f32 in its kernel;
-                # the split-dim pair runs 256-column blocks of a row
-                cls = (f"{-(-fk.padded_dim(dim) // 256)} column block(s)"
-                       if k.startswith("tp_") else row_class(
-                           dim, torch.float32 if k == "grouped_rep_force"
-                           else dtype))
+                # the repulsion's samples and x_i are f32 in its kernel
+                cls = row_class(dim, torch.float32
+                                if k == "grouped_rep_force" else dtype)
                 classes[k].append(dict(
                     dim=dim, gather=t, row_class=cls,
                     row_width=fk.padded_dim(dim), max_abs_err=err,

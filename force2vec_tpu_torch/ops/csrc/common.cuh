@@ -1,6 +1,6 @@
 // Helpers shared by the force kernels: row loads and stores, lane-group
 // sums, the force models, and the ELL gather engine (ell_block) that
-// ell_edge_force.cu and ell_sample_force.cu both run.
+// ell_edge_force.cu, ell_sample_force.cu and tp_pair_force.cu all run.
 //
 // A group of G lanes holds one embedding row of D elements, D a runtime
 // argument, a multiple of 8 up to kMaxDim (the trainers hold X at the dim
@@ -261,6 +261,17 @@ struct SampleForce {
   }
 };
 
+// The pair scalar alone, for tp_pair_partial: x_i . xg_j (kDot), else
+// |x_i - xg_j|^2.  Only pair_part reads it.
+template <bool kDot_>
+struct PairScalar {
+  static constexpr bool kDot = kDot_;
+  static constexpr bool kUsesInvd = false;
+  __device__ static __forceinline__ float vec(float xi, float xj) {
+    return xi - xj;
+  }
+};
+
 // One lane's share of a pair's scalar a (its V elements of the row).
 template <class F, int V>
 __device__ __forceinline__ float pair_part(const float (&xi)[V],
@@ -298,6 +309,19 @@ __device__ __forceinline__ float pair_part(const float (&xi)[V],
 // row's end are not loaded and count as 0.  (A whole warp per wide row,
 // its two groups taking alternate slots, was tried on an H100 and was no
 // faster on the bench layout; its code cost registers.)
+//
+// A scalar policy (ScalarMode) says where each pair's a comes from and what
+// becomes of it, so that the split-dim kernels (tp_pair_force.cu) run on
+// the same engine:
+//   kCompute: a from the row's whole width, then the force (the fused
+//             kernels);
+//   kStore:   a from these columns alone, stored per slot, part[s] (0 in
+//             the padded slots k >= deg), and no force: lane l of a group
+//             keeps the scalar of the round's slot l and the group stores
+//             its G slots with one coalesced store a round;
+//   kLoad:    a read per slot, p.a[s] (G scalars a round, with the round's
+//             G ids), then the force; no dot product.
+enum ScalarMode { kCompute = 0, kStore = 1, kLoad = 2 };
 
 constexpr int kEllWarps = 4;  // warps per block
 constexpr int kEllThreads = kEllWarps * 32;
@@ -327,6 +351,8 @@ struct EllArgs {
   const float* invd;      // [n_pad] 1 / (deg + 1); read only by sigmoid
   const float* sm_table;  // [2048] sigmoid table; read only by table models
   float* out;             // [out rows, dim]
+  const float* a;         // [slots] pair scalars, read by kLoad
+  float* part;            // [slots] pair scalars, written by kStore
   float step;
   int dim;                // elements a row: a multiple of kRowAlign
   int accumulate;         // store out + sum instead of sum
@@ -377,11 +403,14 @@ __device__ __forceinline__ float piece_f32(const uint4& q, int v) {
   return __uint_as_float(v % 2 == 0 ? w << 16 : w & 0xffff0000u);
 }
 
-// The body of both ELL kernels: this block's entry, one row of RC::D
-// (kFull) or p.dim elements per group of RC::G lanes.
-template <typename T, class RC, class F>
+// The body of the ELL kernels: this block's entry, one row of RC::D
+// (kFull) or p.dim elements per group of RC::G lanes, each pair's scalar
+// as Mode says.
+template <typename T, class RC, class F, int Mode = kCompute>
 __device__ __forceinline__ void ell_block(const EllArgs<T>& p) {
-  constexpr int G = RC::G, P = RC::P, E = RC::E, U = RC::U;
+  constexpr int G = RC::G, P = RC::P, E = RC::E;
+  constexpr int U = RC::U;
+  constexpr bool kStores = Mode == kStore;
   constexpr int NG = 32 / G;  // rows per warp
   const EllEntry& e = ell_entry(p);
   const int lane = threadIdx.x & 31;
@@ -411,7 +440,8 @@ __device__ __forceinline__ void ell_block(const EllArgs<T>& p) {
     }
   }
   if (F::kUsesInvd && live) invd_i = p.invd[i];
-  const int32_t* ids = p.nbr + e.nbr_begin + int64_t(r) * e.width;
+  const int64_t s0 = e.nbr_begin + int64_t(r) * e.width;  // the row's slots
+  const int32_t* ids = p.nbr + s0;
   int n_max = n;  // the warp's loops run to its longest row
 #pragma unroll
   for (int o = G; o < 32; o <<= 1) {
@@ -424,8 +454,13 @@ __device__ __forceinline__ void ell_block(const EllArgs<T>& p) {
     for (int v = 0; v < E; ++v) acc[c][v] = 0.0f;
   }
 
-  for (int i0 = 0; i0 < n_max; i0 += G) {
+  // kStore's rounds cover the whole width, the padded slots' 0s included
+  const int rounds_end = kStores ? e.width : n_max;
+  for (int i0 = 0; i0 < rounds_end; i0 += G) {
     const int my_j = i0 + gl < n ? ids[i0 + gl] : 0;
+    // kLoad: the scalar of this lane's slot; kStore: the one it stores
+    float my_a = 0.0f;
+    if (Mode == kLoad && i0 + gl < n) my_a = p.a[s0 + i0 + gl];
     const int cnt = min(G, n_max - i0);
     for (int k = 0; k < cnt; k += U) {
       uint4 xj[U][P];
@@ -442,45 +477,59 @@ __device__ __forceinline__ void ell_block(const EllArgs<T>& p) {
           }
         }
       }
-      float a[U];
+      float a[U];  // the pairs' scalars (kLoad takes each as it uses it)
+      if constexpr (Mode != kLoad) {
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        a[u] = 0.0f;
-        if (i0 + k + u < n) {
+        for (int u = 0; u < U; ++u) {
+          a[u] = 0.0f;
+          if (i0 + k + u < n) {
 #pragma unroll
-          for (int c = 0; c < P; ++c) {
-            float f[E];
+            for (int c = 0; c < P; ++c) {
+              float f[E];
 #pragma unroll
-            for (int v = 0; v < E; ++v) f[v] = piece_f32<T>(xj[u][c], v);
-            const float part = pair_part<F, E>(xi[c], f);
-            a[u] = c == 0 ? part : a[u] + part;
+              for (int v = 0; v < E; ++v) f[v] = piece_f32<T>(xj[u][c], v);
+              const float part = pair_part<F, E>(xi[c], f);
+              a[u] = c == 0 ? part : a[u] + part;
+            }
+          }
+        }
+#pragma unroll
+        for (int o = G / 2; o > 0; o >>= 1) {
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            a[u] += __shfl_xor_sync(kFullMask, a[u], o);
           }
         }
       }
-#pragma unroll
-      for (int o = G / 2; o > 0; o >>= 1) {
+      if constexpr (kStores) {
 #pragma unroll
         for (int u = 0; u < U; ++u) {
-          a[u] += __shfl_xor_sync(kFullMask, a[u], o);
+          if (gl == k + u) my_a = a[u];
         }
-      }
+      } else {
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        if (i0 + k + u < n) {
-          const float cf = F::coeff(a[u], invd_i, p.step, p.sm_table);
+        for (int u = 0; u < U; ++u) {
+          // kLoad: slot k + u's scalar from the lane that read it
+          const float au = Mode == kLoad
+                               ? __shfl_sync(kFullMask, my_a, k + u, G)
+                               : a[u];
+          if (i0 + k + u < n) {
+            const float cf = F::coeff(au, invd_i, p.step, p.sm_table);
 #pragma unroll
-          for (int c = 0; c < P; ++c) {
+            for (int c = 0; c < P; ++c) {
 #pragma unroll
-            for (int v = 0; v < E; ++v) {
-              acc[c][v] += F::term(
-                  cf, F::vec(xi[c][v], piece_f32<T>(xj[u][c], v)), p.step);
+              for (int v = 0; v < E; ++v) {
+                acc[c][v] += F::term(
+                    cf, F::vec(xi[c][v], piece_f32<T>(xj[u][c], v)), p.step);
+              }
             }
           }
         }
       }
     }
+    if (kStores && live && i0 + gl < e.width) p.part[s0 + i0 + gl] = my_a;
   }
-  if (live) {
+  if (!kStores && live) {
     float* o = p.out + (e.out_begin + r) * dim;
 #pragma unroll
     for (int c = 0; c < P; ++c) {

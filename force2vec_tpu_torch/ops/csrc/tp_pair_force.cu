@@ -1,11 +1,13 @@
 // The force kernels with the embedding dim split over tp ranks.
 //
+// Replaces the JAX package's tp sync step, which runs in jnp ops because
+// Pallas is off at tp > 1 (force2vec_tpu/train/sync.py:269), its pair
+// scalars completed by a psum over tp (force2vec_tpu/dist/spmd.py:44-51).
 // Under tp a rank holds d = D / tp columns of every row, so a pair's scalar
 // a (|x_i - xg_j|^2, or x_i . xg_j for the sigmoid family) is a sum over
-// the ranks, and the fused kernels (ell_edge_force.cu, grouped_rep_force.cu,
-// ell_sample_force.cu), which reduce a row's whole width in registers,
-// cannot make it.  A force over a work table (common.cuh) then takes two
-// launches around the caller's all_reduce:
+// the ranks, and the fused kernels, which reduce a row's whole width in
+// registers, cannot make it.  A force over a work table (common.cuh) then
+// takes two launches around the caller's all_reduce:
 //
 //   tp_pair_partial: part[s] = this rank's share of a, for every slot s of
 //                    the table (0 in the padded slots k >= deg);
@@ -15,227 +17,103 @@
 //
 // with the force models of the fused kernels (common.cuh's EdgeForce and
 // SampleForce): the edge forces for the attraction, the sample forces for
-// the repulsion (group-shared negatives as one row of ns ids per row).
-// The JAX package runs this step in jnp ops with a psum over tp
-// (force2vec_tpu/train/sync.py turns Pallas off at tp > 1); these kernels
-// are its counterpart on the card.
+// the repulsion (group-shared negatives as one row of ns ids per row).  The
+// sync trainer lays the attraction's and the repulsion's tables end to end,
+// so an iteration makes one tp_pair_partial launch and one all_reduce, then
+// a tp_pair_force launch for each on its slice of the scalars.
 //
-// A warp owns a table row; lane l holds columns l, l + 32, ... of a block
-// of kTpCols columns, so each row load is coalesced; rows wider than that
-// (any d up to kMaxDim) run block by block: tp_pair_partial sums a slot's
-// blocks before its warp sum, tp_pair_force takes one column block per
-// blockIdx.y.
-// Slots run one at a time, each scalar a warp sum: a plain first design
-// (the fused kernels' 16 rows in flight are what a faster one would copy).
+// What bounds them: bytes.  At the main path's shapes (tp = 2, d = 64
+// columns a rank, bf16 gathers, main's edge table) each reads 2.10 M
+// neighbour rows of 128 bytes, mostly from the L2 that holds the whole
+// 17 MB replica half; the functions' own bytes (each input once, each
+// output once) take 0.0209 ms (partial, with 10.3 MB of scalars written)
+// and 0.0304 ms (force, with the scalars read) at 3.35 TB/s.
+//
+// Design: both are instances of the fused kernels' gather engine
+// (common.cuh::ell_block) over the row classes of with_row_class (16-byte
+// pieces, G lanes a row, U neighbour rows in flight a group, x_i loaded
+// once per row over its whole width), with a scalar policy:
+// tp_pair_partial stores each slot's group sum (kStore) and accumulates no
+// force; tp_pair_force reads the scalars a round at a time beside the ids
+// (kLoad) and makes no dot product.  The design before it (a warp per
+// table row, one slot at a time, 2- or 4-byte loads at stride 32, x_i
+// reloaded per slot or 256-column block) took 0.2321 and 0.2316 ms there.
 
 #include "common.cuh"
 
 namespace f2v {
 namespace {
 
-constexpr int kTpWarps = 8;  // warps, and table rows, per block
-constexpr int kTpThreads = kTpWarps * 32;
-constexpr int kTpPerLane = 8;  // columns a lane holds
-constexpr int kTpCols = 32 * kTpPerLane;  // columns a block of a row
-
-template <typename T>
-struct TpArgs {
-  const float* x;         // [n, d] this rank's columns of X
-  const T* xg;            // [m, d] the gather table's columns
-  const int32_t* nbr;     // every entry's [rows, width] ids, flat
-  const int32_t* deg;     // [rows] valid slots per row
-  const int32_t* xi_row;  // [rows] row of x (and invd) a table row uses
-  const float* invd;      // [n] 1 / (deg + 1); read only by sigmoid edges
-  const float* sm_table;  // [2048] sigmoid table; read only by table models
-  const float* a;         // [slots] reduced scalars (tp_pair_force)
-  float* part;            // [slots] partial scalars (tp_pair_partial)
-  float* out;             // [out rows, d] (tp_pair_force)
-  float step;
-  int dim;
-  int accumulate;  // store out + sum instead of sum
-  int n_entries;
-  EllEntry e[kMaxEntries];
-};
-
-// Fill p's entries from the host's [n, 5] int64 table (row_begin,
-// nbr_begin, out_begin, rows, width), one row per warp.  Returns the
-// number of blocks the launch needs, or -1 for a malformed table.
-template <typename T>
-int64_t tp_plan(TpArgs<T>& p, const int64_t* table, int n) {
-  if (n < 1 || n > kMaxEntries) return -1;
-  int64_t blocks = 0;
-  for (int k = 0; k < n; ++k) {
-    const int64_t* q = table + 5 * k;
-    if (q[0] < 0 || q[1] < 0 || q[2] < 0 || q[3] < 0 ||
-        q[3] > INT_MAX - kTpWarps || q[4] < 0 || q[4] > INT_MAX) {
-      return -1;
-    }
-    p.e[k] = EllEntry{q[0], q[1], q[2], int(q[3]), int(q[4]), int(blocks)};
-    blocks += (q[3] + kTpWarps - 1) / kTpWarps;
-    if (blocks > INT_MAX) return -1;
-  }
-  p.n_entries = n;
-  return blocks;
+template <typename T, int G, int P, bool kFull, bool kDot>
+__global__ void __launch_bounds__(kEllThreads,
+                                  RowClass<T, G, P, kFull>::kMinBlocks)
+    tp_pair_partial_kernel(const __grid_constant__ EllArgs<T> p) {
+  ell_block<T, RowClass<T, G, P, kFull>, PairScalar<kDot>, kStore>(p);
 }
 
-// This warp's table row: its entry and its row in the entry, or -1 past
-// the entry's rows (a whole warp, so every shuffle sees 32 lanes).
-template <typename T>
-__device__ __forceinline__ int tp_row(const TpArgs<T>& p,
-                                      const EllEntry*& e) {
-  e = &ell_entry(p);
-  const int r = (int(blockIdx.x) - e->block_begin) * kTpWarps +
-                int(threadIdx.x >> 5);
-  return r < e->rows ? r : -1;
+// kLoad keeps a few registers more than the fused kernels (a slot offset
+// and its scalar a round): rows that fill 16 or 32 lanes of one piece
+// spilled at the fused classes' 5 blocks an SM (96 registers) and take
+// 4 (up to 102 used, none spilled, on an H100).
+template <class RC>
+constexpr int load_min_blocks() {
+  return RC::P == 1 && RC::G >= 16 && RC::kFull ? 4 : RC::kMinBlocks;
 }
 
-// Lane `lane`'s columns of a block of d elements at p (d may exceed
-// kTpCols: the block's first kTpCols are read), as f32 (0 past d).
-template <typename T>
-__device__ __forceinline__ void load_cols(const T* __restrict__ p, int d,
-                                          int lane, float (&v)[kTpPerLane]) {
-#pragma unroll
-  for (int u = 0; u < kTpPerLane; ++u) {
-    const int c = lane + 32 * u;
-    v[u] = c < d ? to_f32(p[c]) : 0.0f;
-  }
+template <typename T, int G, int P, bool kFull, class F>
+__global__ void __launch_bounds__(
+    kEllThreads, load_min_blocks<RowClass<T, G, P, kFull>>())
+    tp_pair_force_kernel(const __grid_constant__ EllArgs<T> p) {
+  ell_block<T, RowClass<T, G, P, kFull>, F, kLoad>(p);
 }
 
-// This lane's share of the pair scalar over one column block.
-template <bool kDot>
-__device__ __forceinline__ float block_part(const float (&xi)[kTpPerLane],
-                                            const float (&xj)[kTpPerLane]) {
-  float s = 0.0f;
-#pragma unroll
-  for (int u = 0; u < kTpPerLane; ++u) {
-    const float t = kDot ? xj[u] : xi[u] - xj[u];
-    s += (kDot ? xi[u] : t) * t;
-  }
-  return s;
-}
-
-template <typename T, bool kDot>
-__global__ void __launch_bounds__(kTpThreads)
-    tp_pair_partial_kernel(const __grid_constant__ TpArgs<T> p) {
-  const EllEntry* e;
-  const int r = tp_row(p, e);
-  if (r < 0) return;
-  const int lane = threadIdx.x & 31;
-  const int d = p.dim;
-  const int n = p.deg[e->row_begin + r];
-  const float* xr = p.x + int64_t(p.xi_row[e->row_begin + r]) * d;
-  float xi[kTpPerLane];  // the first column block stays in registers
-  load_cols(xr, d, lane, xi);
-  const int64_t s0 = e->nbr_begin + int64_t(r) * e->width;
-  for (int k = 0; k < e->width; ++k) {
-    float s = 0.0f;
-    if (k < n) {  // the same n on every lane of the warp
-      const T* jr = p.xg + int64_t(p.nbr[s0 + k]) * d;
-      float xj[kTpPerLane];
-      load_cols(jr, d, lane, xj);
-      s = block_part<kDot>(xi, xj);
-      for (int c0 = kTpCols; c0 < d; c0 += kTpCols) {
-        float xb[kTpPerLane];
-        load_cols(xr + c0, d - c0, lane, xb);
-        load_cols(jr + c0, d - c0, lane, xj);
-        s += block_part<kDot>(xb, xj);
-      }
-      s = group_sum<32>(s);
-    }
-    if (lane == 0) p.part[s0 + k] = s;
-  }
-}
-
-// Block (x, y) runs the x-th group of table rows over column block y.
-template <typename T, class F>
-__global__ void __launch_bounds__(kTpThreads)
-    tp_pair_force_kernel(const __grid_constant__ TpArgs<T> p) {
-  const EllEntry* e;
-  const int r = tp_row(p, e);
-  if (r < 0) return;
-  const int lane = threadIdx.x & 31;
-  const int d = p.dim;
-  const int c0 = blockIdx.y * kTpCols;  // this block's first column
-  const int n = p.deg[e->row_begin + r];
-  const int64_t i = p.xi_row[e->row_begin + r];
-  float xi[kTpPerLane];
-  load_cols(p.x + i * d + c0, d - c0, lane, xi);
-  const float invd_i = F::kUsesInvd ? p.invd[i] : 0.0f;
-  const int64_t s0 = e->nbr_begin + int64_t(r) * e->width;
-  float acc[kTpPerLane];
-#pragma unroll
-  for (int u = 0; u < kTpPerLane; ++u) acc[u] = 0.0f;
-  for (int k = 0; k < n; ++k) {
-    float xj[kTpPerLane];
-    load_cols(p.xg + int64_t(p.nbr[s0 + k]) * d + c0, d - c0, lane, xj);
-    const float c = F::coeff(p.a[s0 + k], invd_i, p.step, p.sm_table);
-#pragma unroll
-    for (int u = 0; u < kTpPerLane; ++u) {
-      acc[u] += F::term(c, F::vec(xi[u], xj[u]), p.step);
-    }
-  }
-  float* o = p.out + (e->out_begin + r) * d + c0;
-#pragma unroll
-  for (int u = 0; u < kTpPerLane; ++u) {
-    const int c = lane + 32 * u;
-    if (c < d - c0) o[c] = p.accumulate ? __fadd_rn(o[c], acc[u]) : acc[u];
-  }
-}
-
-template <class Kernel, typename T>
-cudaError_t run(Kernel k, const TpArgs<T>& p, int64_t blocks,
-                cudaStream_t s, int col_blocks = 1) {
+template <class RC, typename T, class Kernel>
+cudaError_t run(Kernel kernel, EllArgs<T>& p, const int64_t* table, int n,
+                cudaStream_t s) {
+  const int64_t blocks = ell_plan<RC>(p, table, n);
+  if (blocks < 0) return cudaErrorInvalidValue;
   if (blocks == 0) return cudaSuccess;
-  k<<<dim3(static_cast<unsigned>(blocks), col_blocks), kTpThreads, 0, s>>>(p);
+  kernel<<<dim3(static_cast<unsigned>(blocks)), kEllThreads, 0, s>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t force(TpArgs<T>& p, int64_t blocks, int kind, int model,
-                  cudaStream_t s) {
-  const int cb = (p.dim + kTpCols - 1) / kTpCols;  // column blocks
-  if ((kind == 0 && model == kSigmoidTable) ||
-      (kind == 1 && model == kSigmoidTableRep)) {
-    if (p.sm_table == nullptr) return cudaErrorInvalidValue;
+template <typename T, class RC>
+cudaError_t force(EllArgs<T>& p, const int64_t* table, int n, int kind,
+                  int model, cudaStream_t s) {
+  if (p.sm_table == nullptr && ((kind == 0 && model == kSigmoidTable) ||
+                                (kind == 1 && model == kSigmoidTableRep))) {
+    return cudaErrorInvalidValue;
   }
-  auto go = [&](auto kernel) { return run(kernel, p, blocks, s, cb); };
+  auto go = [&](auto f) {
+    return run<RC>(
+        tp_pair_force_kernel<T, RC::G, RC::P, RC::kFull, decltype(f)>, p,
+        table, n, s);
+  };
   if (kind == 0) {
     switch (model) {
-      case kTdist:
-        return go(tp_pair_force_kernel<T, EdgeForce<kTdist>>);
-      case kSigmoid:
-        return go(tp_pair_force_kernel<T, EdgeForce<kSigmoid>>);
-      case kFr:
-        return go(tp_pair_force_kernel<T, EdgeForce<kFr>>);
-      case kLinlog:
-        return go(tp_pair_force_kernel<T, EdgeForce<kLinlog>>);
-      case kForceatlas:
-        return go(tp_pair_force_kernel<T, EdgeForce<kForceatlas>>);
-      case kSigmoidTable:
-        return go(tp_pair_force_kernel<T, EdgeForce<kSigmoidTable>>);
-      default:
-        return cudaErrorInvalidValue;
+      case kTdist: return go(EdgeForce<kTdist>{});
+      case kSigmoid: return go(EdgeForce<kSigmoid>{});
+      case kFr: return go(EdgeForce<kFr>{});
+      case kLinlog: return go(EdgeForce<kLinlog>{});
+      case kForceatlas: return go(EdgeForce<kForceatlas>{});
+      case kSigmoidTable: return go(EdgeForce<kSigmoidTable>{});
+      default: return cudaErrorInvalidValue;
     }
   }
   if (kind != 1) return cudaErrorInvalidValue;
   switch (model) {
-    case kTdistRep:
-      return go(tp_pair_force_kernel<T, SampleForce<kTdistRep>>);
-    case kSigmoidRep:
-      return go(tp_pair_force_kernel<T, SampleForce<kSigmoidRep>>);
-    case kLayoutRep:
-      return go(tp_pair_force_kernel<T, SampleForce<kLayoutRep>>);
-    case kSigmoidTableRep:
-      return go(tp_pair_force_kernel<T, SampleForce<kSigmoidTableRep>>);
-    default:
-      return cudaErrorInvalidValue;
+    case kTdistRep: return go(SampleForce<kTdistRep>{});
+    case kSigmoidRep: return go(SampleForce<kSigmoidRep>{});
+    case kLayoutRep: return go(SampleForce<kLayoutRep>{});
+    case kSigmoidTableRep: return go(SampleForce<kSigmoidTableRep>{});
+    default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-TpArgs<T> args(const void* x, const void* xg, const void* nbr,
-               const void* deg, const void* xi_row, int dim) {
-  TpArgs<T> p{};
+EllArgs<T> args(const void* x, const void* xg, const void* nbr,
+                const void* deg, const void* xi_row, int dim) {
+  EllArgs<T> p{};
   p.x = static_cast<const float*>(x);
   p.xg = static_cast<const T*>(xg);
   p.nbr = static_cast<const int32_t*>(nbr);
@@ -250,12 +128,17 @@ cudaError_t partial(const void* x, const void* xg, const void* nbr,
                     const void* deg, const void* xi_row, void* part,
                     const int64_t* table, int n_entries, int dim, int dot,
                     cudaStream_t s) {
-  TpArgs<T> p = args<T>(x, xg, nbr, deg, xi_row, dim);
+  EllArgs<T> p = args<T>(x, xg, nbr, deg, xi_row, dim);
   p.part = static_cast<float*>(part);
-  const int64_t blocks = tp_plan(p, table, n_entries);
-  if (blocks < 0) return cudaErrorInvalidValue;
-  return dot ? run(tp_pair_partial_kernel<T, true>, p, blocks, s)
-             : run(tp_pair_partial_kernel<T, false>, p, blocks, s);
+  return with_row_class<T>(dim, [&](auto rc) {
+    using RC = decltype(rc);
+    return dot ? run<RC>(tp_pair_partial_kernel<T, RC::G, RC::P, RC::kFull,
+                                                true>,
+                         p, table, n_entries, s)
+               : run<RC>(tp_pair_partial_kernel<T, RC::G, RC::P, RC::kFull,
+                                                false>,
+                         p, table, n_entries, s);
+  });
 }
 
 template <typename T>
@@ -264,31 +147,31 @@ cudaError_t apply(const void* x, const void* xg, const void* nbr,
                   const void* sm_table, const void* a, float step, void* out,
                   int accumulate, const int64_t* table, int n_entries,
                   int dim, int kind, int model, cudaStream_t s) {
-  TpArgs<T> p = args<T>(x, xg, nbr, deg, xi_row, dim);
+  EllArgs<T> p = args<T>(x, xg, nbr, deg, xi_row, dim);
   p.invd = static_cast<const float*>(invd);
   p.sm_table = static_cast<const float*>(sm_table);
   p.a = static_cast<const float*>(a);
   p.out = static_cast<float*>(out);
   p.step = step;
-  p.accumulate = accumulate;
-  const int64_t blocks = tp_plan(p, table, n_entries);
-  if (blocks < 0) return cudaErrorInvalidValue;
-  return force(p, blocks, kind, model, s);
+  p.accumulate = accumulate != 0;
+  return with_row_class<T>(dim, [&](auto rc) {
+    return force<T, decltype(rc)>(p, table, n_entries, kind, model, s);
+  });
 }
 
 }  // namespace
 }  // namespace f2v
 
 // table: [n_entries, 5] int64 in host memory, as f2v_ell_edge_force's.
-// dim: this rank's columns, 1 to kMaxDim.  dot: a is x_i . xg_j, else
-// |x_i - xg_j|^2.  part: [slots] f32, one per slot of nbr.
+// dim: this rank's columns, a multiple of kRowAlign up to kMaxDim, rows
+// 16-byte aligned.  dot: a is x_i . xg_j, else |x_i - xg_j|^2.  part:
+// [slots] f32, one per slot of nbr.
 extern "C" int f2v_tp_pair_partial(const void* x, const void* xg,
                                    int xg_is_bf16, const void* nbr,
                                    const void* deg, const void* xi_row,
                                    void* part, const void* table,
                                    int n_entries, int dim, int dot,
                                    void* stream) {
-  if (dim < 1 || dim > f2v::kMaxDim) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t* t = static_cast<const int64_t*>(table);
   return xg_is_bf16
@@ -309,7 +192,6 @@ extern "C" int f2v_tp_pair_force(const void* x, const void* xg,
                                  int accumulate, const void* table,
                                  int n_entries, int dim, int kind, int model,
                                  void* stream) {
-  if (dim < 1 || dim > f2v::kMaxDim) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t* t = static_cast<const int64_t*>(table);
   return xg_is_bf16

@@ -16,6 +16,8 @@ The counterpart of ``force2vec_tpu/ops/pallas_force.py``:
   any of those forces with the dim split over tp ranks, in two launches
   around the caller's ``all_reduce`` of the pair scalars; the JAX package
   computes that step in jnp ops (Pallas off at tp > 1).
+  ``concat_work_tables`` lays several tables end to end, so that one
+  ``tp_pair_partial`` launch covers the attraction's and the repulsion's.
 
 Each kernel has
 
@@ -27,12 +29,12 @@ Each kernel has
 * a launch count in ``launch_counts``, raised by one per kernel launch and
   by nothing else.
 
-A CUDA tensor never falls back to the plain version.  The fused kernels
-take rows of any multiple of ``ROW_ALIGN`` elements up to
-``KERNEL_MAX_DIM``: the trainers hold X at ``padded_dim(dim)`` columns, the
-padding columns 0, which every force model leaves 0 (a zero difference, a
-zero neighbour component).  The split-dim kernels take 1 to
-``KERNEL_MAX_DIM`` columns a rank.  The sigmoid family comes exact or from
+A CUDA tensor never falls back to the plain version.  Every kernel takes
+rows of any multiple of ``ROW_ALIGN`` elements up to ``KERNEL_MAX_DIM``
+(under tp, a rank's columns), 16-byte aligned: the trainers hold X at
+``padded_dim(dim)`` columns, the padding columns 0, which every force model
+leaves 0 (a zero difference, a zero neighbour component).  The plain
+versions take any width.  The sigmoid family comes exact or from
 the lookup table (``models/forces.py::with_table_sigmoid``): each table
 function has its own model id, and its launch gets the device's table.
 """
@@ -548,8 +550,7 @@ def _tp_kind(model: ForceModel, kind: str):
     return int(kind == "sample"), ids[fn]
 
 
-def _check_tp_operands(model, kind, x, xg, table: EdgeWorkTable):
-    _tp_kind(model, kind)
+def _check_tp_operands(x, xg, table: EdgeWorkTable):
     dev = x.device
     _check("x", x, (torch.float32,), 2, dev)
     _check("xg", xg, _GATHER_DTYPES, 2, dev)
@@ -561,12 +562,48 @@ def _check_tp_operands(model, kind, x, xg, table: EdgeWorkTable):
     _require(table.nbr.device == dev, f"table on {table.nbr.device}, x on "
                                       f"{dev}")
     if dev.type == "cuda":
-        _require(1 <= x.shape[1] <= KERNEL_MAX_DIM,
-                 f"the split-dim kernels take 1 to {KERNEL_MAX_DIM} columns "
-                 f"a rank, got {x.shape[1]}")
+        _check_cuda_operands(x.shape[1], x, xg)
 
 
-def tp_pair_partial_plain(model: ForceModel, kind: str, x, xg,
+def concat_work_tables(tables) -> tuple:
+    """``(table, views)``: one work table over the entries of ``tables``
+    laid end to end (each table's ids, deg and xi_row after those of the
+    tables before it, its entries' rows, slots and output rows moved past
+    theirs), and each of ``tables`` again as views into the new table's
+    arrays, so that writing a view's ids writes the new table's.  The sync
+    trainer's tp iteration makes one ``tp_pair_partial`` launch over its
+    attraction's and repulsion's tables so, and a ``tp_pair_force`` launch
+    for each on its slice of the scalars (a view's slots start at the
+    sum of the slots before it).  The tables must index the same x and
+    gather table; raises if their entries pass the ``_MAX_ENTRIES`` a
+    launch takes, never splitting them."""
+    _require(len(tables) > 0, "no tables to lay end to end")
+    n_pad, n_gather = tables[0].n_pad, tables[0].n_gather
+    _require(all((t.n_pad, t.n_gather) == (n_pad, n_gather) for t in tables),
+             "the tables must index the same x and gather table")
+    n = sum(t.entries.shape[0] for t in tables)
+    _require(n <= _MAX_ENTRIES,
+             f"the tables hold {n} entries; one launch takes at most "
+             f"{_MAX_ENTRIES} (csrc/common.cuh::kMaxEntries)")
+    nbr = torch.cat([t.nbr for t in tables])
+    deg = torch.cat([t.deg for t in tables])
+    xi_row = torch.cat([t.xi_row for t in tables])
+    entries, views, rows, slots, out_rows = [], [], 0, 0, 0
+    for t in tables:
+        entries.append(t.entries + np.array([rows, slots, out_rows, 0, 0]))
+        r, k = t.deg.shape[0], t.nbr.shape[0]
+        views.append(dataclasses.replace(
+            t, nbr=nbr[slots: slots + k], deg=deg[rows: rows + r],
+            xi_row=xi_row[rows: rows + r]))
+        rows, slots, out_rows = rows + r, slots + k, out_rows + t.out_rows
+    return EdgeWorkTable(
+        nbr=nbr, deg=deg, xi_row=xi_row,
+        entries=np.ascontiguousarray(np.concatenate(entries), dtype=np.int64),
+        n_pad=n_pad, out_rows=out_rows, n_gather=n_gather,
+        partial=any(t.partial for t in tables)), views
+
+
+def tp_pair_partial_plain(model: ForceModel, x, xg,
                           table: EdgeWorkTable) -> torch.Tensor:
     """[slots] f32: each slot's share of its pair's scalar from these
     columns (x_i · xg_j for the dot models, else |x_i - xg_j|²), 0 in the
@@ -612,19 +649,20 @@ def tp_pair_force_plain(model: ForceModel, kind: str, x, xg,
     return out
 
 
-def tp_pair_partial(model: ForceModel, kind: str, x, xg,
+def tp_pair_partial(model: ForceModel, x, xg,
                     table: EdgeWorkTable) -> torch.Tensor:
-    """This rank's share of every slot's pair scalar, for a force whose
-    dim is split over tp ranks: [slots] f32, to be summed over the ranks
-    (an ``all_reduce``) and passed to ``tp_pair_force``.
+    """This rank's share of every slot's pair scalar, for forces whose dim
+    is split over tp ranks: [slots] f32, to be summed over the ranks (an
+    ``all_reduce``) and passed to ``tp_pair_force``.
 
     x [table.n_pad, d] f32 and xg [table.n_gather, d] bf16 or f32 (the
-    gather table) hold this rank's d columns; ``kind`` ("edge" or
-    "sample") names which of ``model``'s forces the scalars are for.
+    gather table) hold this rank's d columns.  The scalars depend on the
+    model's ``a_kind`` alone, so one table may hold the entries of several
+    forces (``concat_work_tables``).
     """
-    _check_tp_operands(model, kind, x, xg, table)
+    _check_tp_operands(x, xg, table)
     if x.device.type == "cpu":
-        return tp_pair_partial_plain(model, kind, x, xg, table)
+        return tp_pair_partial_plain(model, x, xg, table)
     dev = x.device
     _require(dev.type == "cuda", f"no kernel for device {dev}")
     part = torch.empty(table.nbr.shape[0], dtype=torch.float32, device=dev)
@@ -650,7 +688,8 @@ def tp_pair_force(model: ForceModel, kind: str, x, xg, table: EdgeWorkTable,
     sigmoid edge forces).  Writes into ``out`` [table.out_rows, d] f32 if
     given (with ``accumulate``, adds into it); returns it.
     """
-    _check_tp_operands(model, kind, x, xg, table)
+    k, mid = _tp_kind(model, kind)
+    _check_tp_operands(x, xg, table)
     dev = x.device
     _check("a", a, (torch.float32,), 1, dev)
     _check("invd", invd, (torch.float32,), 1, dev)
@@ -664,7 +703,7 @@ def tp_pair_force(model: ForceModel, kind: str, x, xg, table: EdgeWorkTable,
         return tp_pair_force_plain(model, kind, x, xg, table, a, invd, step,
                                    out=out, accumulate=accumulate)
     _require(dev.type == "cuda", f"no kernel for device {dev}")
-    k, mid = _tp_kind(model, kind)
+    _check_aligned(out)
     fn = model.edge_coeff if kind == "edge" else model.sample_force
     lib = _build.load_library()
     with torch.cuda.device(dev):

@@ -53,11 +53,13 @@ ranks:
   kernel's groups are the layout's) and is gathered by a second
   ``all_gather_into_tensor``;
 * tp: a pair's scalar is a sum over the tp ranks' columns, which the
-  fused kernels cannot make; each force (the attraction, the repulsion)
-  runs as the split-dim kernels instead: ``tp_pair_partial`` over its
-  table, an ``all_reduce`` of the scalars over tp, ``tp_pair_force``
-  (group-shared negatives as each row's own row of ns ids).  The JAX
-  package runs that step in jnp ops (Pallas off at tp > 1).
+  fused kernels cannot make; the forces run as the split-dim kernels
+  instead, over the attraction's and the repulsion's work tables laid end
+  to end (group-shared negatives as each row's own row of ns ids): one
+  ``tp_pair_partial`` launch over both, one ``all_reduce`` of the scalars
+  over tp (counted in ``tp_all_reduces``), then a ``tp_pair_force`` launch
+  for each force on its slice of them.  The JAX package runs that
+  step in jnp ops (Pallas off at tp > 1).
 """
 
 from __future__ import annotations
@@ -161,8 +163,10 @@ class SyncForce2Vec:
         # alignment (each tp rank pads its own)
         self.row_width = force_kernels.padded_dim(self._dim)
         # tp: the pairs' scalars need an all_reduce, so the forces run as
-        # the split-dim kernels (tp_pair_partial, all_reduce, tp_pair_force)
+        # the split-dim kernels (tp_pair_partial, all_reduce, tp_pair_force
+        # twice) over the tables _tp_tables lays end to end
         self._tp = spmd.n_tp > 1
+        self.tp_all_reduces = 0  # the pair scalars' all_reduces so far
         self._rsum = spmd.make_rsum()  # the energy update's row norms
         if self.device.type == "cuda":
             if not self._tp:
@@ -211,10 +215,15 @@ class SyncForce2Vec:
                 np.stack([lay.deg.astype(np.int32), base], axis=1), device=dev)
             self._walk_deg = torch.full((lay.n_pad,), config.walk_length,
                                         dtype=torch.int32, device=dev)
-            if spmd.n_dp > 1:
-                r0, r1 = self._dp_rows()
-                self._dp_walk_rows = self._all_rows[r0:r1]
-            return  # walk attraction reads no bucket
+        else:  # walk attraction reads no bucket
+            self._bucket_tables()
+        if self._tp:
+            self._tp_tables()
+
+    def _bucket_tables(self) -> None:
+        """``device_buckets``, the hub among them, and the attraction's
+        work table (``edge_table``; under dp this rank's slices of it)."""
+        lay, dev = self.layout, self.device
         for bi, b in enumerate(lay.buckets):
             if b.owners is not None:
                 self.device_buckets.append(DeviceBucket(
@@ -238,10 +247,33 @@ class SyncForce2Vec:
                                     device=dev)))
         self._hub = next((b for b in self.device_buckets
                           if b.owner_local is not None), None)
-        if spmd.n_dp > 1:
+        if self.spmd.n_dp > 1:
             self._dp_edge_table()
         else:
             self.edge_table = self._edge_table()
+
+    def _tp_tables(self) -> None:
+        """tp: the attraction's work table (``edge_table``, or the walks of
+        this rank's rows) and the repulsion's (each of this rank's rows with
+        its ns sample ids) laid end to end
+        (``force_kernels.concat_work_tables``) as ``_tp_cat``, so that an
+        iteration makes one ``tp_pair_partial`` launch and one
+        ``all_reduce``.  ``_tp_att`` and ``_tp_rep`` are views of its two
+        halves, whose ids each iteration's walks and negatives overwrite."""
+        fk, cfg = force_kernels, self.config
+        r0, r1 = self._rank_rows()
+
+        def per_row(width, deg):
+            ids = torch.zeros((r1 - r0, width), dtype=torch.int32,
+                              device=self.device)
+            return fk.EdgeWorkTable.single(ids, deg[r0:r1],
+                                           self._all_rows[r0:r1],
+                                           self.layout.n_pad)
+
+        att = (per_row(cfg.walk_length, self._walk_deg)
+               if self.model.attraction == "walk" else self.edge_table)
+        self._tp_cat, (self._tp_att, self._tp_rep) = fk.concat_work_tables(
+            [att, per_row(cfg.ns, self._ns_deg)])
 
     def _edge_table(self) -> force_kernels.EdgeWorkTable:
         """The work table of ``device_buckets``: a non-hub bucket writes its
@@ -267,6 +299,13 @@ class SyncForce2Vec:
         local = self.layout.n_pad // self.spmd.n_dp
         r0 = self.spmd.dp_index * local
         return r0, r0 + local
+
+    def _rank_rows(self):
+        """The table rows whose per-row forces this rank computes: all of
+        them, or under dp its 1/dp (``_dp_rows``)."""
+        if self.spmd.n_dp > 1:
+            return self._dp_rows()
+        return 0, self.layout.n_pad
 
     def _dp_edge_table(self) -> None:
         """This dp rank's work table: the rank's 1/dp slice of every
@@ -379,23 +418,37 @@ class SyncForce2Vec:
 
     # -- the iteration ---------------------------------------------------------
 
-    def _tp_force(self, kind, x, xg, table, step, plain) -> torch.Tensor:
-        """[table.out_rows, d]: the ``kind`` force over ``table`` with the
-        dim split over tp: this rank's partial pair scalars, their
-        ``all_reduce`` over tp, then the force on this rank's columns."""
-        fk = force_kernels
+    def _tp_forces(self, x, xg, negs, walks, step, plain):
+        """tp: this rank's attraction and repulsion on its columns, shaped
+        as ``_edge_table_launch`` (or ``_walk_launch``) and
+        ``_rank_repulsion`` return them: the iteration's walks and
+        negatives written into ``_tp_cat``'s ids, one ``tp_pair_partial``
+        over it, one ``all_reduce`` of the scalars over tp, then
+        ``tp_pair_force`` for each force on its slice of them."""
+        fk, model = force_kernels, self.model
+        r0, r1 = self._rank_rows()
+        if walks is not None:
+            self._tp_att.nbr.view(r1 - r0, -1).copy_(walks[r0:r1])
+        rep_ids = self._tp_rep.nbr.view(r1 - r0, -1)
+        if self.config.per_vertex_samples:
+            rep_ids.copy_(negs[r0:r1])
+        else:  # each row's group's ids as its own row of samples
+            torch.index_select(negs, 0, self._gid[r0:r1], out=rep_ids)
         part = (fk.tp_pair_partial_plain if plain else fk.tp_pair_partial)(
-            self.model, kind, x, xg, table)
+            model, x, xg, self._tp_cat)
         dist.all_reduce(part, group=self.spmd.tp)
-        return (fk.tp_pair_force_plain if plain else fk.tp_pair_force)(
-            self.model, kind, x, xg, table, part, self.inv_deg, step)
+        self.tp_all_reduces += 1
+        force = fk.tp_pair_force_plain if plain else fk.tp_pair_force
+        n_att = self._tp_att.nbr.shape[0]
+        return (force(model, "edge", x, xg, self._tp_att, part[:n_att],
+                      self.inv_deg, step),
+                force(model, "sample", x, xg, self._tp_rep, part[n_att:],
+                      self.inv_deg, step))
 
     def _edge_table_launch(self, x, xg, step, plain) -> torch.Tensor:
         """This rank's attraction over ``edge_table``: ``[n_pad + hub rows,
-        D]``, or under dp its slices' ``[L, D]`` (``_dp_place``)."""
+        D]``, or under dp its slices' ``[L, D]`` (``_place_attraction``)."""
         fk = force_kernels
-        if self._tp:
-            return self._tp_force("edge", x, xg, self.edge_table, step, plain)
         if plain:
             return fk.ell_edge_force_table_plain(
                 self.model, x, xg, self.edge_table, self.inv_deg, step)
@@ -411,6 +464,14 @@ class SyncForce2Vec:
                                     group=self.spmd.dp)
         return out
 
+    def _place_rows(self, local: torch.Tensor) -> torch.Tensor:
+        """``[n_pad, D]`` from a per-row force of this rank's rows
+        (``_rank_rows``): ``local`` itself, or under dp the ranks' slices
+        gathered."""
+        if self.spmd.n_dp == 1:
+            return local
+        return self._dp_gather(local, self.layout.n_pad)
+
     def _dp_place(self, g: torch.Tensor) -> torch.Tensor:
         """``[n_pad, D]`` attraction from ``g`` ``[dp·L + 1, D]``: the dp
         ranks' ``_edge_table_launch`` slices in rank order, then a 0 row
@@ -423,11 +484,12 @@ class SyncForce2Vec:
                 0, self._hub.owner_local, g.index_select(0, self._dp_hub_src))
         return upd
 
-    def _attraction(self, x, xg, step, plain) -> torch.Tensor:
-        """[n_pad, D] attraction of the CSR models: one launch over
-        ``edge_table``, then the hub's partial rows into their owners."""
+    def _place_attraction(self, out: torch.Tensor) -> torch.Tensor:
+        """[n_pad, D] attraction of the CSR models from this rank's
+        ``_edge_table_launch`` output: the hub's partial rows added into
+        their owners, or under dp the ranks' slices gathered and put in
+        place (``_dp_place``)."""
         n_pad = self.layout.n_pad
-        out = self._edge_table_launch(x, xg, step, plain)
         if self.spmd.n_dp > 1:
             local = out.shape[0]
             g = torch.zeros((self.spmd.n_dp * local + 1, out.shape[1]),
@@ -440,75 +502,66 @@ class SyncForce2Vec:
                 0, self._hub.owner_local, out[n_pad:])
         return upd
 
-    def _walk_attraction(self, x, xg, walks, step, plain) -> torch.Tensor:
-        fk, rows = force_kernels, self._all_rows
-        if self.spmd.n_dp > 1:
-            rows = self._dp_walk_rows
-            walks = walks[rows.long()]
-        deg = self._walk_deg[:rows.shape[0]]
-        if self._tp:
-            out = self._tp_force("edge", x, xg, fk.EdgeWorkTable.single(
-                walks, deg, rows, self.layout.n_pad), step, plain)
-        else:
-            args = (self.model, x, xg, walks, deg, rows, self.inv_deg, step)
-            out = (fk.ell_edge_force_plain(*args) if plain
-                   else fk.ell_edge_force(*args))
-        if self.spmd.n_dp > 1:
-            out = self._dp_gather(out, self.layout.n_pad)
-        return out
+    def _walk_launch(self, x, xg, walks, step, plain) -> torch.Tensor:
+        """The walk attraction of this rank's rows (``_rank_rows``)."""
+        fk = force_kernels
+        r0, r1 = self._rank_rows()
+        args = (self.model, x, xg, walks[r0:r1], self._walk_deg[r0:r1],
+                self._all_rows[r0:r1], self.inv_deg, step)
+        return (fk.ell_edge_force_plain(*args) if plain
+                else fk.ell_edge_force(*args))
 
     def _rank_repulsion(self, x, xg, negs, step, plain) -> torch.Tensor:
         """The repulsion of this rank's rows: ``[n_pad, D]``, or under dp
         the ``[n_pad / dp, D]`` of its 1/dp (``_dp_rows``)."""
         fk, model = force_kernels, self.model
-        r0, r1 = (self._dp_rows() if self.spmd.n_dp > 1
-                  else (0, self.layout.n_pad))
+        r0, r1 = self._rank_rows()
         rows, deg = self._all_rows[r0:r1], self._ns_deg[r0:r1]
         if self.config.per_vertex_samples:
             # ns samples of each row's own (-bs 1, the JAX package's
             # [n_pad, ns] branch, sync.py:604-621)
-            idx = negs[r0:r1]
-            if self._tp:
-                return self._tp_force("sample", x, xg, fk.EdgeWorkTable.single(
-                    idx, deg, rows, self.layout.n_pad), step, plain)
-            args = (model, x, xg, idx, deg, rows, step)
+            args = (model, x, xg, negs[r0:r1], deg, rows, step)
             return (fk.ell_sample_force_plain(*args) if plain
                     else fk.ell_sample_force(*args))
         # one ns-sample set per batch_size-row group — the reference's
-        # option-5 sampling (sample/algorithms.cpp:577-586)
-        if self._tp:  # each row's group's ids as its own row of samples
-            idx = negs[self._gid[r0:r1]]
-            return self._tp_force("sample", x, xg, fk.EdgeWorkTable.single(
-                idx, deg, rows, self.layout.n_pad), step, plain)
-        # a dp slice starts from the group boundary at or before its first
-        # row, so the kernel's groups are the layout's
+        # option-5 sampling (sample/algorithms.cpp:577-586); a dp slice
+        # starts from the group boundary at or before its first row, so the
+        # kernel's groups are the layout's
         group = max(self.config.batch_size, 1)
         a0 = r0 // group * group
         sg = xg[negs[a0 // group: -(-r1 // group)].long()]  # [g, ns, D]
         return (fk.grouped_rep_force_plain if plain else fk.grouped_rep_force)(
             model, group, x[a0:r1], sg, step)[r0 - a0:]
 
-    def _add_repulsion(self, upd, x, xg, negs, step, plain) -> None:
-        if (self.config.per_vertex_samples and self.spmd.n_dp == 1
-                and not self._tp):
+    def _forces(self, x, xg, negs, walks, step, plain) -> torch.Tensor:
+        """The iteration's update before the energy step: ``[n_pad, D]``
+        attraction plus repulsion."""
+        if self._tp:
+            att, rep = self._tp_forces(x, xg, negs, walks, step, plain)
+        elif walks is not None:
+            att = self._walk_launch(x, xg, walks, step, plain)
+        else:
+            att = self._edge_table_launch(x, xg, step, plain)
+        upd = (self._place_attraction(att) if walks is None
+               else self._place_rows(att))
+        if self._tp:
+            return upd.add_(self._place_rows(rep))
+        if self.config.per_vertex_samples and self.spmd.n_dp == 1:
             # path A: the kernel adds into the update
             args = (self.model, x, xg, negs, self._ns_deg, self._all_rows,
                     step)
             (force_kernels.ell_sample_force_plain if plain
              else force_kernels.ell_sample_force)(*args, out=upd,
                                                   accumulate=True)
-            return
-        rep = self._rank_repulsion(x, xg, negs, step, plain)
-        upd.add_(rep if self.spmd.n_dp == 1
-                 else self._dp_gather(rep, self.layout.n_pad))
+            return upd
+        return upd.add_(self._place_rows(
+            self._rank_repulsion(x, xg, negs, step, plain)))
 
     def _iteration(self, x: torch.Tensor, negs: torch.Tensor,
                    walks: Optional[torch.Tensor], step: float,
                    plain: bool) -> torch.Tensor:
         xg = x if self._gdt is None else x.to(self._gdt)
-        upd = (self._attraction(x, xg, step, plain) if walks is None
-               else self._walk_attraction(x, xg, walks, step, plain))
-        self._add_repulsion(upd, x, xg, negs, step, plain)
+        upd = self._forces(x, xg, negs, walks, step, plain)
         if self.model.update == "energy":
             fnorm = self._rsum(upd * upd)
             safe = torch.where(fnorm > 0, fnorm, 1.0)
