@@ -174,9 +174,30 @@ path G, every width (``-dim`` any of 1 to ``force_kernels.KERNEL_MAX_DIM``,
     split-dim pair queued ahead of the device, beside their bounds and
     plain versions; the ``kernels`` line lists them under ``row_classes``.
 
+path H, the hot/cold gather split (``SyncForce2Vec(hot_rows=k)``), at the
+main path's configuration with the top n / 8 rows of the degree order hot:
+
+32. (H1) the split's two edge launches, each against its plain version
+    elementwise (tdist and sigmoid): the cold table storing every update
+    row, the hot table adding into its rows; adding equals ``out.add_``
+    of the stored result bit for bit; both timed beside bound and plain;
+33. (H2) the bound rejects the hot launch with each row's last slot
+    skipped, and the iteration bound an iteration without its hot launch;
+    one split iteration through the kernels and the plain versions, timed;
+34. (H3) one split iteration against the unsplit one (``-bs 1``
+    negatives in original id space): bf16 gathers < 1e-3, f32 gathers
+    within 1e-5 relative (1e-6 absolute);
+35. (H4) the dp = 2 slices of the split on this card, counted, put in
+    place against the single-card split iteration;
+36. (H5) 50 training iterations with exact launch counts (two edge
+    launches an iteration), X finite, edges closer than random pairs;
+37. (H6) main at 1,048,576 vertices (the bf16 replica 5.4x the L2),
+    unsplit and split with a hot suffix of the L2's size, queued, in
+    turns.
+
 ``python3 chip_smoke.py --path F`` builds the kernels and runs path F
 alone (a check of the multi-card schedules on a host with several cards);
-``--path G`` runs path G alone.
+``--path G`` runs path G alone, ``--path H`` path H.
 
 The quality margins are half of what the JAX package reaches on the CPU
 with the same graph, configuration and iteration count
@@ -362,6 +383,14 @@ G_TERMS = 1 << 26
 # launch's shared memory (dims 512 and up)
 G_MANY_SAMPLES = 40
 G_CLI_ITERS = 5
+# path H: the hot suffix is the top n / H_HOT_DIV rows of the degree order;
+# the dp slices run on one card; the big graph's vertices (its bf16
+# replica 268 MB, 5.4x the H100's 50 MB L2); the f32 split iteration's
+# bound against the unsplit one (the JAX package's own for its split)
+H_HOT_DIV = 8
+H_DP = 2
+H_BIG_N = 1 << 20
+SPLIT_F32_RTOL, SPLIT_F32_ATOL = 1e-5, 1e-6
 # G2: (what, TrainConfig over the bench's, statistic, the JAX package's
 # value after TRAIN_ITERS sync iterations on the CPU from
 # scripts/jax_quality_reference.py: tdist_d32, tdist_per_vertex_d256,
@@ -3118,6 +3147,281 @@ def widths_path(graph, dev, card):
     return counts, classes
 
 
+# -- path H: the hot/cold gather split -----------------------------------------
+
+
+def split_table_checks(model, x, xg, fv, step, what):
+    """The split's two edge launches as the path runs them, each against
+    its plain per-entry terms: the cold table storing (every update row;
+    ``check_table``), the hot table adding onto a zero base (its entries'
+    rows, the dot models to their terms' interval, ``held_ratio(dot=True)``;
+    elsewhere the base must stay 0).  Returns ((cold max |err|,
+    ratio), (hot max |err|, ratio), the hot launch's output)."""
+    cold = check_table(model, x, xg, fv.edge_table, fv.inv_deg, step,
+                       f"{what} cold")
+    t = fv.hot_table
+    got = torch.zeros((t.out_rows, x.shape[1]), device=x.device)
+    fk.ell_edge_force_table(model, x, xg, t, fv.inv_deg, step, out=got,
+                            accumulate=True)
+    err = ratio = 0.0
+    touched = torch.zeros(t.out_rows, dtype=torch.bool, device=x.device)
+    for nbr, deg, xi_row, ob in t.parts():
+        args = (x, xg, nbr, deg, xi_row, fv.inv_deg, step)
+        part = got[ob: ob + nbr.shape[0]]
+        err = max(err, max_err(part, fk.ell_edge_force_terms(
+            model, *args).sum(dim=1)))
+        # a row's few hot slots leave sigmoid's 1 - σ(a) uncancelled by
+        # other terms: the dot models are held to the interval their terms
+        # span under the dot's rounding, as on path G
+        ratio = max(ratio, held_ratio(
+            part, lambda m: fk.ell_edge_force_terms(m, *args), model,
+            dot=True))
+        touched[ob: ob + nbr.shape[0]] = True
+    check(ratio <= 1.0, f"ell_edge_force_table {what} hot (adding): |err| "
+                        f"exceeds {SUM_RTOL} x sum |terms| by {ratio:.3f}x")
+    check(bool((got[~touched] == 0).all()),
+          f"the hot launch ({what}) wrote rows outside its entries")
+    return cold, (err, ratio), got
+
+
+def edge_accumulate_check(model, x, xg, table, invd, step, what):
+    """``ell_edge_force_table(..., out=base, accumulate=True)`` equals
+    ``base.add_`` of the same launch stored onto zeros, bit for bit (rows
+    outside a partial table's entries: base + 0)."""
+    base = torch.randn((table.out_rows, x.shape[1]), device=x.device,
+                       generator=torch.Generator(x.device).manual_seed(23))
+    got = fk.ell_edge_force_table(model, x, xg, table, invd, step,
+                                  out=base.clone(), accumulate=True)
+    want = base.add_(fk.ell_edge_force_table(
+        model, x, xg, table, invd, step, out=torch.zeros_like(base)))
+    check(torch.equal(got, want), f"ell_edge_force_table {what}: "
+                                  "accumulate=True differs from out.add_")
+
+
+def hot_last_slot_skipped_ratio(model, x, xg, table, invd, step, got):
+    """Bound ratio of the hot launch's output (``got``, on a zero base)
+    against a faulty plain version that skips each row's last hot slot;
+    must be above 1."""
+    worst = 0.0
+    for nbr, deg, xi_row, ob in table.parts():
+        terms = fk.ell_edge_force_terms(model, x, xg, nbr,
+                                        (deg - 1).clamp(min=0), xi_row, invd,
+                                        step)
+        worst = max(worst, bound_ratio(got[ob: ob + nbr.shape[0]], terms))
+    return worst
+
+
+def split_launch_times(fv, x, xg, card) -> dict:
+    """The two edge launches queued ahead of the device and back to back,
+    each beside its bound and plain version: the cold table storing, the
+    hot table adding into the cold's output."""
+    model, step = fv.model, fv.lr
+    out = fk.ell_edge_force_table(model, x, xg, fv.edge_table, fv.inv_deg,
+                                  step)
+    rec = {}
+    for name, table, acc in (("cold", fv.edge_table, False),
+                             ("hot", fv.hot_table, True)):
+        args = (model, x, xg, table, fv.inv_deg, step)
+        kw = dict(out=out, accumulate=acc)
+        km = cuda_ms(lambda: fk.ell_edge_force_table(*args, **kw), reps=20)
+        qm = queued_device_ms(lambda: fk.ell_edge_force_table(*args, **kw),
+                              reps=20)
+        pm = cuda_ms(lambda: fk.ell_edge_force_table_plain(*args, **kw),
+                     reps=3)
+        nbytes, terms = ell_work([p[:3] for p in table.parts()], x, xg, True,
+                                 reads_out=acc)
+        b_ms, by = bound_ms(nbytes, terms * term_flops(model, "edge",
+                                                       x.shape[1]))
+        rec[name] = dict(ms=km, queued_ms=qm, plain_ms=pm, bound_ms=b_ms,
+                         bound_by=by, slots=terms,
+                         entries=len(table.entries))
+        say(f"split {name} launch ({'adding' if acc else 'storing'}, "
+            f"{len(table.entries)} entries, {terms} real slots): kernel_ms="
+            f"{km:.4f} queued={qm:.4f} ({terms / qm / 1e6:.2f} G rows/s) "
+            f"plain_ms={pm:.4f} bound_ms={b_ms:.4f} ({by}: "
+            f"{nbytes / 1e6:.1f} MB) [{card}]")
+    return rec
+
+
+def split_vs_unsplit_phase(graph, dev, card):
+    """One split iteration against the unsplit one (per-vertex negatives
+    in original id space, which the two relabelings both take), with bf16
+    gathers (max |ΔX| < ITER_TOL) and f32 gathers (within SPLIT_F32_RTOL
+    relative, SPLIT_F32_ATOL absolute)."""
+    rng = np.random.default_rng(13)
+    x_host = torch.as_tensor(
+        rng.random((graph.n, BENCH_CONFIG.dim), dtype=np.float32) * 2 - 1,
+        device=dev)
+    pv = rng.integers(0, graph.n - 1, size=(graph.n, BENCH_CONFIG.ns))
+    out = {}
+    for gather in ("bfloat16", None):
+        cfg = dataclasses.replace(BENCH_CONFIG, per_vertex_samples=True,
+                                  gather_dtype=gather)
+        res = []
+        for hot in (0, graph.n // H_HOT_DIV):
+            fv = SyncForce2Vec(graph, cfg, MIN_WIDTH, HUB_WIDTH,
+                               hot_rows=hot, device=dev)
+            lay = fv.layout
+            negs = np.zeros((lay.n_pad, cfg.ns), np.int32)
+            negs[: graph.n] = lay.inv_perm[pv[lay.perm]]
+            x = fv.pad_embedding(x_host)
+            fv.run_iteration(x, negs)
+            res.append(fv.unpad_embedding(x))
+        d = (res[1] - res[0]).abs()
+        e = float(d.max())
+        rel = float((d / res[0].abs().clamp(min=1e-30)).max())
+        say(f"split vs unsplit iteration ({gather or 'float32'} gathers, "
+            f"-bs 1): max |dX| {e:.3e}, max relative {rel:.3e} [{card}]")
+        if gather:
+            check(e < ITER_TOL, f"the split iteration differs from the "
+                                f"unsplit one by {e:.3e}")
+        else:
+            check(bool((d <= SPLIT_F32_RTOL * res[0].abs()
+                        + SPLIT_F32_ATOL).all()),
+                  "the f32 split iteration differs from the unsplit one")
+        out[gather or "float32"] = e
+    return out
+
+
+def split_dp_phase(graph, dev, card, one, x, negs_t):
+    """The split under dp = H_DP on this one card: each rank's runner
+    (``SpmdAxes(n_dp=H_DP, dp_index=k)``, no group) makes its cold and hot
+    launches and its repulsion, counted; the slices concatenated in rank
+    order (as ``all_gather_into_tensor`` would) and put in place by the
+    runner's permutation, against the single-card split iteration."""
+    cfg, step = BENCH_CONFIG, one.lr
+    want = one.unpad_embedding(one.run_iteration(x.clone(), negs_t))
+    xg = x.to(torch.bfloat16)
+    ranks = [SyncForce2Vec(graph, cfg, MIN_WIDTH, HUB_WIDTH,
+                           hot_rows=one.hot_rows,
+                           spmd=SpmdAxes(n_dp=H_DP, dp_index=k), device=dev)
+             for k in range(H_DP)]
+    check(all(np.array_equal(r.layout.perm, one.layout.perm) for r in ranks),
+          "the dp runners' split layout differs from the single card's")
+    reset_counts()
+    outs = [r._edge_table_launch(x, xg, step, False) for r in ranks]
+    reps = [r._rank_repulsion(x, xg, negs_t, step, False) for r in ranks]
+    torch.cuda.synchronize(dev)
+    counts = read_counts()
+    check(counts == {**{k: 0 for k in counts},
+                     "ell_edge_force": 2 * H_DP, "grouped_rep_force": H_DP},
+          f"the dp split slices' launches {counts}")
+    g = torch.cat(outs + [torch.zeros_like(outs[0][:1])])
+    new = x + ranks[0]._dp_place(g).add_(torch.cat(reps))
+    e = max_err(one.unpad_embedding(new), want)
+    say(f"H dp={H_DP} split slices on one card: launches {counts}; the "
+        f"slices put in place vs the single-card split iteration max |dX| "
+        f"{e:.3e} [{card}]")
+    check(e < ITER_TOL, "the dp split update differs from one card's")
+    return counts
+
+
+def split_big_graph_phase(dev, card):
+    """Main at H_BIG_N vertices (its bf16 replica past the L2), unsplit and
+    split with a hot suffix of the L2's size, queued ahead of the device in
+    turns (unsplit, split, split, unsplit); returns the record."""
+    graph = synth_powerlaw_graph(n=H_BIG_N)
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    hot = l2 // (BENCH_CONFIG.dim * 2)
+    runners = {h: SyncForce2Vec(graph, BENCH_CONFIG, MIN_WIDTH, HUB_WIDTH,
+                                hot_rows=h, device=dev) for h in (0, hot)}
+    ng = -(-runners[0].layout.n_pad // BENCH_CONFIG.batch_size)
+    negs = torch.randint(0, graph.n - 1, (ng, BENCH_CONFIG.ns),
+                         dtype=torch.int32, device=dev,
+                         generator=torch.Generator(dev).manual_seed(3))
+    xs = {h: fv.init_embedding(seed=1) for h, fv in runners.items()}
+    times = {0: [], hot: []}
+    for h in (0, hot, hot, 0):
+        fv = runners[h]
+        times[h].append(queued_device_ms(
+            lambda: fv.run_iteration(xs[h], negs), reps=10))
+    stats = runners[hot].split_stats()
+    say(f"H n={graph.n} (bf16 replica {graph.n * BENCH_CONFIG.dim * 2} "
+        f"bytes, L2 {l2}): main queued ms/iteration unsplit {times[0]}, "
+        f"split at hot_rows={hot} {times[hot]}; split_stats "
+        f"{json.dumps(stats)} [{card}]")
+    for h, x in xs.items():
+        check(bool(torch.isfinite(x).all()), f"n={graph.n} hot_rows={h}: "
+                                             "X is not finite")
+    return {"n": graph.n, "hot_rows": hot, "unsplit_queued_ms": times[0],
+            "split_queued_ms": times[hot], "hot_fraction":
+            stats["hot_fraction"]}
+
+
+def split_path(graph, dev, card, big=True):
+    """Path H: the hot/cold gather split at the main path's configuration
+    with the top n / H_HOT_DIV rows hot.  Returns (the edge kernel's split
+    records, the 50 iterations' launch counts)."""
+    t0 = time.perf_counter()
+    fv = SyncForce2Vec(graph, BENCH_CONFIG, MIN_WIDTH, HUB_WIDTH,
+                       hot_rows=graph.n // H_HOT_DIV, device=dev)
+    stats = fv.split_stats()
+    say(f"H split runner built in {time.perf_counter() - t0:.1f} s: "
+        f"split_stats {json.dumps(stats)}; cold table "
+        f"{len(fv.edge_table.entries)} entries, hot table "
+        f"{len(fv.hot_table.entries)} entries over "
+        f"{fv.hot_table.deg.shape[0]} rows")
+    check(fv.layout.hot_start == graph.n - graph.n // H_HOT_DIV,
+          "the split layout's hot suffix")
+    x0 = fv.init_embedding(seed=1)
+    xg = x0.to(torch.bfloat16)
+    errs = {}
+    for name in ("tdist", "sigmoid"):
+        model = get_model(name)
+        step = fv.lr if name == "tdist" else 0.02
+        cold, hot, got = split_table_checks(model, x0, xg, fv, step, name)
+        edge_accumulate_check(model, x0, xg, fv.hot_table, fv.inv_deg, step,
+                              f"{name} hot")
+        say(f"H {name}: cold launch (storing) max_abs_err={cold[0]:.3e} "
+            f"bound_ratio={cold[1]:.4f}; hot launch (adding) max_abs_err="
+            f"{hot[0]:.3e} bound_ratio={hot[1]:.4f}; accumulate=True bit for "
+            f"bit out.add_")
+        if name == "tdist":
+            errs = {"cold": cold[0], "hot": hot[0]}
+            check(max(errs.values()) <= EDGE_TOL,
+                  f"split launches: max |err| {errs} > {EDGE_TOL}")
+            skipped = hot_last_slot_skipped_ratio(model, x0, xg,
+                                                  fv.hot_table, fv.inv_deg,
+                                                  step, got)
+    rec = split_launch_times(fv, x0, xg, card)
+    for k in rec:
+        rec[k]["max_abs_err"] = errs[k]
+
+    ng = -(-fv.layout.n_pad // BENCH_CONFIG.batch_size)
+    negs = np.random.default_rng(7).integers(
+        0, graph.n - 1, size=(ng, BENCH_CONFIG.ns)).astype(np.int32)
+    want = fv.run_iteration(x0.clone(), negs)
+    hot_table, fv.hot_table = fv.hot_table, None
+    dropped = max_err(fv.run_iteration(x0.clone(), negs), want)
+    fv.hot_table = hot_table
+    say(f"planted faults: hot launch with each row's last slot skipped "
+        f"bound_ratio={skipped:.2f} (must be > 1); the hot launch dropped: "
+        f"max |dX| {dropped:.3e} from the split iteration (must be >= "
+        f"{ITER_TOL})")
+    check(skipped > 1.0, "the bound passed a hot launch that skips each "
+                         "row's last slot")
+    check(dropped >= ITER_TOL, "an iteration without its hot launch passed "
+                               "the iteration bound")
+    # the repulsion's add_ and X += update: the hot launch adds in the
+    # kernel
+    iter_ms, iter_plain_ms, q_ms = iteration_phase(fv, x0, card, negs,
+                                                   adds=2)
+    rec["iteration_queued_ms"] = q_ms
+    say(f"H split ms_per_iteration kernels={iter_ms:.4f} plain="
+        f"{iter_plain_ms:.4f} queued={q_ms:.4f} [{card}]")
+    rec["vs_unsplit_max_dx"] = split_vs_unsplit_phase(graph, dev, card)
+    split_dp_phase(graph, dev, card, fv, x0, torch.as_tensor(negs,
+                                                             device=dev))
+    emb, counts = train_phase(fv, {
+        "ell_edge_force": 2 * TRAIN_ITERS, "grouped_rep_force": TRAIN_ITERS,
+        "ell_sample_force": 0}, card)
+    distance_gap_check(graph, emb, QUALITY_MARGIN, "split")
+    rec["hot_fraction"] = stats["hot_fraction"]
+    if big:
+        rec["big_graph"] = split_big_graph_phase(dev, card)
+    return rec, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check needs the card",
@@ -3160,6 +3464,15 @@ def main() -> int:
                        f"{missing}")
 
     graph = synth_powerlaw_graph()
+    if sys.argv[1:] == ["--path", "H"]:
+        t0 = time.perf_counter()
+        split, counts = split_path(graph, dev, card)
+        say(f"path H (hot/cold split): {time.perf_counter() - t0:.1f} s")
+        say(json.dumps({"path_H_launches": counts, "split": split}))
+        say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if sys.argv[1:] == ["--path", "G"]:
         t0 = time.perf_counter()
         counts, classes = widths_path(graph, dev, card)
@@ -3212,6 +3525,9 @@ def main() -> int:
     t0 = time.perf_counter()
     counts_widths, classes = widths_path(graph, dev, card)
     say(f"path G (every width): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    edge["split"], counts_split = split_path(graph, dev, card)
+    say(f"path H (hot/cold split): {time.perf_counter() - t0:.1f} s")
     say(f"batch schedule (bench graph, -batch 256 -dim 128): "
         f"{json.dumps(batch)} [{card}]")
 
@@ -3219,7 +3535,7 @@ def main() -> int:
              "rwalk": counts_rw, "probes": counts_probes,
              "file": counts_file, "cli": counts_cli,
              "vertex": counts_vertex, "dp": counts_dp, "tp": counts_tp,
-             "widths": counts_widths}
+             "widths": counts_widths, "split": counts_split}
     for name, m in (("ell_edge_force", edge), ("grouped_rep_force", rep),
                     ("ell_sample_force", sample)):
         (m["queued_ms_dim64"], m["bound_ms_dim64"],

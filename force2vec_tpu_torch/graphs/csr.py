@@ -5,10 +5,9 @@ package's ``__init__`` imports JAX, which the GPU host does not have, so
 the port carries its own copy and ``tests/test_torch_layout.py`` pins its
 arrays equal to the JAX package's.
 
-``Graph`` has all of the JAX ``Graph``'s methods, and ``DeviceGraph`` is the
-batch trainer's layout.  Left out on purpose: the hot/cold gather split
-(``hot_rows > 0``), whose only justification was a TPU gather-tier
-measurement.
+``Graph`` has all of the JAX ``Graph``'s methods, ``SyncLayout`` the JAX
+layout's hot/cold gather split (``hot_rows > 0``: ``_split_hot``,
+``HotSpan``), and ``DeviceGraph`` is the batch trainer's layout.
 """
 
 from __future__ import annotations
@@ -109,13 +108,129 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def _split_hot(nbr: np.ndarray, dg: np.ndarray, w: int, hot_start: int,
+               align: int = 8):
+    """Partition a filled ELL rectangle into per-run cold and hot
+    rectangles (the JAX package's ``graphs/csr.py::_split_hot``, array for
+    array).
+
+    Runs are maximal row spans of equal (⌈hot/8⌉·8, ⌈cold/8⌉·8) width
+    class, and both of a run's rectangles are tight.  Each rectangle is
+    padded to whole ``align``-row blocks (pad rows: deg 0, ids 0).
+
+    Returns ``(cold_flat, cdeg, hdeg, hot_flat, spans)``: the flats are 1-D
+    int32 (hot ids local to the hot suffix, id − hot_start), the deg arrays
+    are span-row-padded, and ``spans`` is a list of :class:`HotSpan`.
+    """
+    cnt_rows = len(dg)
+    hotm = (nbr >= hot_start) & (np.arange(w)[None, :] < dg[:, None])
+    hot_ct = hotm.sum(1).astype(np.int32)
+    # a stable argsort of booleans packs each row as
+    # [cold valid..., padding..., hot...]
+    order = np.argsort(hotm, axis=1, kind="stable")
+    packed = np.take_along_axis(nbr, order, axis=1)
+    dg_cold = (dg - hot_ct).astype(np.int32)
+    wh_row = ((hot_ct + 7) // 8) * 8
+    wc_row = ((dg_cold + 7) // 8) * 8
+
+    empty = np.zeros(0, dtype=np.int32)
+    if cnt_rows == 0:
+        return empty, empty, empty, empty, []
+
+    change = np.flatnonzero(
+        (wh_row[1:] != wh_row[:-1]) | (wc_row[1:] != wc_row[:-1])) + 1
+    starts = np.concatenate([[0], change]).astype(np.int64)
+    ends = np.concatenate([change, [cnt_rows]]).astype(np.int64)
+    counts = ends - starts
+    if align % 8:
+        raise ValueError(f"span align {align} must be a multiple of 8")
+    r8s = ((counts + align - 1) // align) * align
+    whs = wh_row[starts].astype(np.int64)
+    wcs = wc_row[starts].astype(np.int64)
+    cold_offs = np.concatenate([[0], np.cumsum(r8s * wcs)])
+    hot_offs = np.concatenate([[0], np.cumsum(r8s * whs)])
+    deg_offs = np.concatenate([[0], np.cumsum(r8s)])
+
+    run_id = np.repeat(np.arange(len(starts)), counts)
+    local = np.arange(cnt_rows, dtype=np.int64) - starts[run_id]
+
+    cdeg = np.zeros(int(deg_offs[-1]), dtype=np.int32)
+    hdeg = np.zeros(int(deg_offs[-1]), dtype=np.int32)
+    deg_pos = deg_offs[run_id] + local
+    cdeg[deg_pos] = dg_cold
+    hdeg[deg_pos] = hot_ct
+
+    # int32 element positions wherever the flats fit them
+    idt = (np.int32 if max(cold_offs[-1], hot_offs[-1], cnt_rows) < 2**31
+           else np.int64)
+
+    def elem_index(lens):
+        """(row_rep, k): each element's row and rank within its row, for
+        the ragged stream with ``lens[row]`` elements a row."""
+        tot = int(lens.sum())
+        cum = np.cumsum(lens, dtype=np.int64)
+        row_rep = np.repeat(np.arange(cnt_rows, dtype=idt), lens)
+        k = (np.arange(tot, dtype=idt)
+             - np.repeat((cum - lens).astype(idt), lens))
+        return row_rep, k
+
+    cold_flat = np.zeros(int(cold_offs[-1]), dtype=np.int32)
+    if int(dg_cold.sum()):
+        row_rep, k = elem_index(dg_cold)
+        base = (cold_offs[run_id] + local * wcs[run_id]).astype(idt)
+        cold_flat[np.repeat(base, dg_cold) + k] = packed[row_rep, k]
+
+    hot_flat = np.zeros(int(hot_offs[-1]), dtype=np.int32)
+    if int(hot_ct.sum()):
+        row_rep, k = elem_index(hot_ct)
+        base = (hot_offs[run_id] + local * whs[run_id]).astype(idt)
+        # hot slots sit in the last hot_ct columns of the packed row
+        src_col = (w - np.repeat(hot_ct, hot_ct).astype(idt)) + k
+        hot_flat[np.repeat(base, hot_ct) + k] = (
+            packed[row_rep, src_col] - hot_start)
+
+    spans = [
+        HotSpan(row_off=int(s), count=int(c), cold_width=int(wc),
+                cold_off=int(co), width=int(wh), flat_off=int(ho),
+                deg_off=int(do), rows_pad=int(r8))
+        for s, c, wc, co, wh, ho, do, r8 in zip(
+            starts, counts, wcs, cold_offs[:-1], whs, hot_offs[:-1],
+            deg_offs[:-1], r8s)
+    ]
+    return cold_flat, cdeg, hdeg, hot_flat, spans
+
+
+@dataclasses.dataclass
+class HotSpan:
+    """A contiguous row run of one bucket stored as two tight rectangles:
+    cold slots (``[rows_pad, cold_width]`` at ``cold_off`` of the bucket's
+    flat ``nbr``, relabeled ids) and hot slots (``[rows_pad, width]`` at
+    ``flat_off`` of ``hot_flat``, ids local to the hot suffix).  The run's
+    rows of the span-padded deg arrays start at ``deg_off``."""
+
+    row_off: int  # first row of the run, relative to the bucket
+    count: int  # real rows; rectangles are stored with ``rows_pad`` rows
+    cold_width: int  # ⌈cold/8⌉·8 of the run's rows (0: no cold slots)
+    cold_off: int  # element offset into EllBucket.nbr (flat when split)
+    width: int  # ⌈hot/8⌉·8 of the run's rows (0: no hot slots)
+    flat_off: int  # element offset into EllBucket.hot_flat
+    deg_off: int = 0  # row offset into the bucket's span-padded deg arrays
+    rows_pad: int = 0  # stored rectangle rows: count rounded up to the align
+
+
 @dataclasses.dataclass
 class EllBucket:
     """One degree bucket: ``count`` rows of ELL width ``width`` starting at
     relabeled row ``start``.  For the hub bucket (``owners is not None``)
     the rows are virtual — partial rows of at most ``width`` neighbours
     owned by the real rows ``owners`` — and their partial force sums are
-    added into the owner rows."""
+    added into the owner rows.
+
+    With the hot/cold split (``SyncLayout.build(hot_rows=...)``) a non-hub
+    bucket's ``nbr`` and ``deg`` hold only its cold slots, as the flat
+    per-run rectangles of ``hot_spans``, and its hot slots lie in
+    ``hot_flat`` with per-row counts ``hot_deg``.  A row's force is the sum
+    of both parts: the split partitions each neighbour multiset."""
 
     width: int
     start: int  # first relabeled real row (the hub range's start for the hub)
@@ -123,6 +238,9 @@ class EllBucket:
     nbr: np.ndarray  # [count, width] int32 relabeled neighbour ids (0-padded)
     deg: np.ndarray  # [count] int32 valid neighbours per row
     owners: Optional[np.ndarray] = None  # [count] int32 relabeled owner rows
+    hot_flat: Optional[np.ndarray] = None  # 1-D int32 hot-local ids
+    hot_deg: Optional[np.ndarray] = None  # span-padded int32 hot slots a row
+    hot_spans: Optional[list] = None  # list[HotSpan]
 
 
 @dataclasses.dataclass
@@ -133,7 +251,10 @@ class SyncLayout:
     contiguous row range of the relabeled table and the buckets tile
     ``[0, n)`` in order, the hub bucket last.  Rows with degree above
     ``hub_width`` are split into virtual rows (the force is a sum over
-    edges, so the split is exact)."""
+    edges, so the split is exact).
+
+    ``hot_start``: with the hot/cold split, the relabeled row where the hot
+    suffix ``[n - hot_rows, n)`` begins, else None."""
 
     n: int
     n_pad: int
@@ -142,6 +263,7 @@ class SyncLayout:
     deg: np.ndarray  # [n_pad] int32 degree per relabeled row (0 for padding)
     buckets: list  # list[EllBucket]
     padded_edges: int  # Σ count·width: ELL slots per iteration
+    hot_start: Optional[int] = None
 
     @staticmethod
     def widths_for(min_width: int, hub_width: int, scheme: str = "pow2"):
@@ -168,10 +290,8 @@ class SyncLayout:
         row_align: int = 8,
         widths: Optional[list] = None,
         hot_rows: int = 0,
+        span_align: int = 8,
     ) -> "SyncLayout":
-        if hot_rows > 0:
-            raise NotImplementedError(
-                "the hot/cold gather split is not ported; build with hot_rows=0")
         n = graph.n
         deg_orig = graph.degrees.astype(np.int64)
         perm = np.argsort(deg_orig, kind="stable").astype(np.int32)
@@ -212,6 +332,29 @@ class SyncLayout:
                 i = j
         hub_start_row = i
 
+        # hot/cold split: the hot member set is the top ``hot_rows`` rows of
+        # the degree order; the within-bucket reorder below puts members at
+        # their bucket's tail, so the set stays the exact suffix
+        # [n - hot_rows, n) of the final relabeling
+        hot_start = n - hot_rows if 0 < hot_rows < n else None
+        if hot_start is not None:
+            hot_member = np.zeros(n, dtype=bool)  # per original id
+            hot_member[perm[hot_start:]] = True
+            cs = np.concatenate(
+                [[0], np.cumsum(hot_member[graph.colids], dtype=np.int64)])
+            hot_cnt_orig = cs[graph.rowptr[1:]] - cs[graph.rowptr[:-1]]
+            for _, bi_, bj_ in bounds:
+                h = hot_cnt_orig[perm[bi_:bj_]]
+                c = deg_orig[perm[bi_:bj_]] - h
+                # membership first (keeps the suffix exact), then the hot
+                # width class, then the cold one: runs of equal (⌈hot/8⌉,
+                # ⌈cold/8⌉) get both rectangles tight
+                order = np.lexsort(
+                    ((c + 7) // 8, (h + 7) // 8, hot_member[perm[bi_:bj_]]))
+                perm[bi_:bj_] = perm[bi_:bj_][order]
+            inv_perm[perm] = np.arange(n, dtype=np.int32)
+            deg_sorted = deg_orig[perm]
+
         buckets = []
         padded_edges = 0
         for w, i, j in bounds:
@@ -221,9 +364,18 @@ class SyncLayout:
             dg = np.zeros(count, dtype=np.int32)
             nbr[: j - i] = nbr_j
             dg[: j - i] = dg_j
-            buckets.append(EllBucket(width=w, start=i, count=count, nbr=nbr,
-                                     deg=dg))
-            padded_edges += count * w
+            if hot_start is None:
+                buckets.append(EllBucket(width=w, start=i, count=count,
+                                         nbr=nbr, deg=dg))
+                padded_edges += count * w
+                continue
+            cflat, cdeg, hdeg, hflat, spans = _split_hot(
+                nbr, dg, w, hot_start, align=span_align)
+            buckets.append(EllBucket(
+                width=w, start=i, count=count, nbr=cflat, deg=cdeg,
+                hot_flat=hflat, hot_deg=hdeg, hot_spans=spans))
+            padded_edges += sum(sp.rows_pad * (sp.width + sp.cold_width)
+                                for sp in spans)
 
         # hub bucket: rows with deg > hub_width, split into virtual rows
         i = hub_start_row
@@ -256,15 +408,18 @@ class SyncLayout:
                                      deg=dg, owners=owners))
             padded_edges += count * w
 
-        # the table covers every bucket's padded row range
+        # the table covers every bucket's padded row range and every span's
+        # padded rectangle
         max_extent = max(
-            [n] + [b.start + b.count for b in buckets if b.owners is None])
+            [n] + [b.start + b.count for b in buckets if b.owners is None]
+            + [b.start + sp.row_off + sp.rows_pad
+               for b in buckets if b.hot_spans for sp in b.hot_spans])
         n_pad = _round_up(max_extent, row_align)
         deg_pad = np.zeros(n_pad, dtype=np.int32)
         deg_pad[:n] = deg_sorted
         return SyncLayout(n=n, n_pad=n_pad, perm=perm, inv_perm=inv_perm,
                           deg=deg_pad, buckets=buckets,
-                          padded_edges=padded_edges)
+                          padded_edges=padded_edges, hot_start=hot_start)
 
 
 @dataclasses.dataclass

@@ -33,10 +33,11 @@ _F = ctypes.c_float
 # C entry points and their argument types (every pointer and the stream as
 # c_void_p, so ctypes never truncates them to 32 bits)
 _SIGNATURES = {
-    # x, xg, xg_is_bf16, nbr, deg, xi_row, invd, sm_table, step, out, table
-    # (host [n_entries, 5] int64), n_entries, dim, model, stream
-    "f2v_ell_edge_force": (_P, _P, _I, _P, _P, _P, _P, _P, _F, _P, _P, _I,
-                           _I, _I, _P),
+    # x, xg, xg_is_bf16, nbr, deg, xi_row, invd, sm_table, step, out,
+    # accumulate, table (host [n_entries, 5] int64), n_entries, dim, model,
+    # stream
+    "f2v_ell_edge_force": (_P, _P, _I, _P, _P, _P, _P, _P, _F, _P, _I, _P,
+                           _I, _I, _I, _P),
     # xi, sg, sg_is_bf16, sm_table, step, out, rows, group, ns, dim, model,
     # stream
     "f2v_grouped_rep_force": (_P, _P, _I, _P, _F, _P, _I, _I, _I, _I, _I,

@@ -16,7 +16,11 @@
 // rows start first and the ~112 K narrow rows fill in behind them.  Hub
 // virtual rows write their partial sums to output rows past the table's
 // n_pad, which the caller adds into their owners.  The per-bucket entry
-// point is a one-entry table over the same kernel.
+// point is a one-entry table over the same kernel.  With `accumulate` a
+// launch adds each row's sum into out (one rounded f32 add per element, as
+// `out.add_(sum)` makes): the hot/cold gather split runs its cold table
+// storing and then its hot table adding into the same rows, two launches,
+// so that no launch holds two entries that write one row.
 //
 // What bounds it: random row reads of the replica.  At the bench shape
 // (131,072 vertices, dim 128, bf16) an iteration reads 2.10 M neighbour
@@ -80,8 +84,8 @@ template <typename T>
 cudaError_t launch(const void* x, const void* xg, const void* nbr,
                    const void* deg, const void* xi_row, const void* invd,
                    const void* sm_table, float step, void* out,
-                   const int64_t* table, int n_entries, int dim, int model,
-                   cudaStream_t s) {
+                   int accumulate, const int64_t* table, int n_entries,
+                   int dim, int model, cudaStream_t s) {
   EllArgs<T> p{};
   p.x = static_cast<const float*>(x);
   p.xg = static_cast<const T*>(xg);
@@ -93,7 +97,7 @@ cudaError_t launch(const void* x, const void* xg, const void* nbr,
   p.out = static_cast<float*>(out);
   p.step = step;
   p.dim = dim;
-  p.accumulate = 0;
+  p.accumulate = accumulate != 0;
   return with_row_class<T>(dim, [&](auto rc) {
     using RC = decltype(rc);
     return launch<T, RC::G, RC::P, RC::kFull>(p, table, n_entries, model, s);
@@ -106,21 +110,23 @@ cudaError_t launch(const void* x, const void* xg, const void* nbr,
 // table: [n_entries, 5] int64 in host memory (row_begin, nbr_begin,
 // out_begin, rows, width), in launch order.  sm_table: the device's
 // [2048] f32 sigmoid table for kSigmoidTable, else unused (may be null).
+// accumulate: add into out's rows instead of storing.
 extern "C" int f2v_ell_edge_force(const void* x, const void* xg,
                                   int xg_is_bf16, const void* nbr,
                                   const void* deg, const void* xi_row,
                                   const void* invd, const void* sm_table,
-                                  float step, void* out, const void* table,
-                                  int n_entries, int dim, int model,
-                                  void* stream) {
+                                  float step, void* out, int accumulate,
+                                  const void* table, int n_entries, int dim,
+                                  int model, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t* t = static_cast<const int64_t*>(table);
   return xg_is_bf16
              ? f2v::launch<__nv_bfloat16>(x, xg, nbr, deg, xi_row, invd,
-                                          sm_table, step, out, t, n_entries,
-                                          dim, model, s)
+                                          sm_table, step, out, accumulate, t,
+                                          n_entries, dim, model, s)
              : f2v::launch<float>(x, xg, nbr, deg, xi_row, invd, sm_table,
-                                  step, out, t, n_entries, dim, model, s);
+                                  step, out, accumulate, t, n_entries, dim,
+                                  model, s);
 }
 
 extern "C" const char* f2v_error_string(int err) {

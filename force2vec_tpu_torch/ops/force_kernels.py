@@ -197,9 +197,10 @@ def _edge_out(out, rows, x):
 
 
 def _launch_edge(model, x, xg, nbr, deg, xi_row, invd, step, out,
-                 table: np.ndarray) -> None:
+                 table: np.ndarray, accumulate: bool = False) -> None:
     """One ``ell_edge_force`` launch over ``table`` ([E, 5] int64 entries,
-    csrc/common.cuh::ell_plan), on checked operands."""
+    csrc/common.cuh::ell_plan), on checked operands; with ``accumulate``
+    it adds into ``out``'s rows."""
     dev = x.device
     _require(dev.type == "cuda", f"no kernel for device {dev}")
     _check_cuda_operands(x.shape[1], x, xg, out)
@@ -209,7 +210,7 @@ def _launch_edge(model, x, xg, nbr, deg, xi_row, invd, step, out,
             x.data_ptr(), xg.data_ptr(), int(xg.dtype == torch.bfloat16),
             nbr.data_ptr(), deg.data_ptr(), xi_row.data_ptr(),
             invd.data_ptr(), _table_ptr(model.edge_coeff, dev), float(step),
-            out.data_ptr(), table.ctypes.data,
+            out.data_ptr(), int(accumulate), table.ctypes.data,
             table.shape[0], x.shape[1], _EDGE_MODEL_IDS[model.edge_coeff],
             _stream(dev))
     _build.check(lib, "ell_edge_force", err)
@@ -351,29 +352,37 @@ def edge_work_table(parts, n_pad: int, out_rows: int, *,
 
 def ell_edge_force_table_plain(model: ForceModel, x, xg,
                                table: EdgeWorkTable, invd, step,
-                               out: Optional[torch.Tensor] = None
-                               ) -> torch.Tensor:
+                               out: Optional[torch.Tensor] = None,
+                               accumulate: bool = False) -> torch.Tensor:
     """[out_rows, D]: ``ell_edge_force_plain`` of each entry, in its output
-    rows of ``out`` (a new tensor if not given)."""
+    rows of ``out`` (a new tensor if not given); with ``accumulate`` added
+    into them (``out[rows].add_(sum)``)."""
     if out is None:
+        _require(not accumulate, "accumulate needs out")
         out = torch.empty((table.out_rows, x.shape[1]), dtype=torch.float32,
                           device=x.device)
     for nbr, deg, xi_row, ob in table.parts():
-        out[ob: ob + nbr.shape[0]] = ell_edge_force_plain(
-            model, x, xg, nbr, deg, xi_row, invd, step)
+        s = ell_edge_force_plain(model, x, xg, nbr, deg, xi_row, invd, step)
+        dst = out[ob: ob + nbr.shape[0]]
+        if accumulate:
+            dst.add_(s)
+        else:
+            dst.copy_(s)
     return out
 
 
 def ell_edge_force_table(model: ForceModel, x, xg, table: EdgeWorkTable,
-                         invd, step,
-                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         invd, step, out: Optional[torch.Tensor] = None,
+                         accumulate: bool = False) -> torch.Tensor:
     """``ell_edge_force`` over every entry of ``table`` in one launch.
 
     x [table.n_pad, D] f32, xg [table.n_gather, D] bf16 or f32, the gather
     table (x's replica unless the table was built with ``n_gather``), invd
     [table.n_pad] f32, step a float.  Writes into ``out`` [table.out_rows,
     D] f32 if given (every row, or with a ``partial`` table its entries'
-    rows, which then needs ``out``); returns it.
+    rows, which then needs ``out``); with ``accumulate`` adds into the
+    entries' rows of ``out`` instead (one f32 add per element, as
+    ``out.add_(sum)`` makes); returns it.
     """
     _check_edge_operands(model, x, xg, invd)
     _require(x.shape[0] == table.n_pad,
@@ -383,14 +392,14 @@ def ell_edge_force_table(model: ForceModel, x, xg, table: EdgeWorkTable,
              f"{table.n_gather}")
     _require(table.nbr.device == x.device,
              f"table on {table.nbr.device}, x on {x.device}")
-    _require(out is not None or not table.partial,
-             "a partial table writes into a given out")
+    _require(out is not None or not (table.partial or accumulate),
+             "accumulate and a partial table need out")
     out = _edge_out(out, table.out_rows, x)
     if x.device.type == "cpu":
-        ell_edge_force_table_plain(model, x, xg, table, invd, step, out=out)
-        return out
+        return ell_edge_force_table_plain(model, x, xg, table, invd, step,
+                                          out=out, accumulate=accumulate)
     _launch_edge(model, x, xg, table.nbr, table.deg, table.xi_row, invd, step,
-                 out, table.entries)
+                 out, table.entries, accumulate)
     return out
 
 

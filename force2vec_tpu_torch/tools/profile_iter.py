@@ -2,14 +2,16 @@
 
     python3 -m force2vec_tpu_torch.tools.profile_iter [--iters 20]
         [--model tdist|sigmoid|rwalk|fr|linlog|forceatlas] [--per-vertex]
-        [--n 131072] [--dim 128] [--trace PATH] [--json PATH]
+        [--n 131072] [--dim 128] [--hot-rows K]
+        [--trace PATH] [--json PATH]
 
 Needs one CUDA card.  Builds the same ``SyncForce2Vec`` as ``chip_smoke.py``
 (``bench.py``'s graph and TrainConfig, with ``--model`` in place of tdist,
 with ``--per-vertex`` ``-bs 1`` negatives, with ``--n`` the graph's
 vertex count, as ``bench.py``'s ``BENCH_N``, and with ``--dim`` the
-embedding width, any from 1 to ``force_kernels.KERNEL_MAX_DIM``) and
-measures, on the kernel
+embedding width, any from 1 to ``force_kernels.KERNEL_MAX_DIM``, and with
+``--hot-rows`` the hot/cold split's hot suffix in rows, 0, the default,
+for none) and measures, on the kernel
 path, an iteration as ``train()`` runs it (for walk models, the walk
 engine's draw included):
 
@@ -26,7 +28,11 @@ engine's draw included):
   launches per iteration, their sum ``busy_ms`` per iteration, the profiled
   wall time per iteration, and ``idle_share = 1 - busy / wall``;
 * ``edge_g_rows_per_s``: the edge kernel's neighbour rows (the graph's
-  edges, or the walks' steps) per second of its device time.
+  edges, or the walks' steps) per second of its device time;
+* ``split``: ``split_stats()``, and with the split each of the two edge
+  launches queued alone, three times: the cold table (storing) and the
+  hot table (adding), each with its real slots and G rows/s, then the
+  pair queued.
 
 Every line names the card and its power limit.  ``--trace`` writes the
 profiler's Chrome trace; ``--json`` writes the numbers.
@@ -77,6 +83,43 @@ def device_breakdown(prof, iters: int) -> dict:
             for name, _ in ms.most_common()}
 
 
+def real_slots(table) -> int:
+    return int(table.deg.sum())
+
+
+def split_launches(fv, x, xg, card, reps: int) -> dict:
+    """The split's two edge launches queued alone, three times each, then
+    the pair (cold, then hot) queued."""
+    cold, hot = fv.edge_table, fv.hot_table
+    out = fk.ell_edge_force_table(fv.model, x, xg, cold, fv.inv_deg, fv.lr)
+
+    def cold_launch():
+        fk.ell_edge_force_table(fv.model, x, xg, cold, fv.inv_deg, fv.lr,
+                                out=out)
+
+    def hot_launch():
+        fk.ell_edge_force_table(fv.model, x, xg, hot, fv.inv_deg, fv.lr,
+                                out=out, accumulate=True)
+
+    res = {"cold_slots": real_slots(cold), "hot_slots": real_slots(hot),
+           "cold_entries": len(cold.entries), "hot_entries": len(hot.entries),
+           "cold_ms": [], "hot_ms": []}
+    for _ in range(3):
+        res["cold_ms"].append(queued_device_ms(cold_launch, reps))
+        res["hot_ms"].append(queued_device_ms(hot_launch, reps))
+    for k in ("cold", "hot"):
+        ms = min(res[f"{k}_ms"])
+        res[f"{k}_g_rows_per_s"] = res[f"{k}_slots"] / ms / 1e6
+        print(f"{k} launch: queued ms {res[f'{k}_ms']}, "
+              f"{res[f'{k}_slots']} real slots, {res[f'{k}_entries']} "
+              f"entries, {res[f'{k}_g_rows_per_s']:.3f} G rows/s [{card}]",
+              flush=True)
+    res["pair_ms"] = [queued_device_ms(lambda: (cold_launch(), hot_launch()),
+                                       reps) for _ in range(2)]
+    print(f"cold then hot, queued: {res['pair_ms']} ms [{card}]", flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
@@ -87,6 +130,8 @@ def main(argv=None) -> int:
     ap.add_argument("--dim", type=int, default=BENCH_CONFIG.dim,
                     help="embedding width (the kernels' rows are it "
                     "rounded up to 8)")
+    ap.add_argument("--hot-rows", type=int, default=0,
+                    help="the split's hot suffix in rows (0: no split)")
     ap.add_argument("--trace", default=None)
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
@@ -97,12 +142,18 @@ def main(argv=None) -> int:
     card = card_name_and_power()
     print(card, flush=True)
     print(f"model={args.model} per_vertex={args.per_vertex} n={args.n} "
-          f"dim={args.dim}", flush=True)
+          f"dim={args.dim} hot_rows={args.hot_rows}", flush=True)
 
     cfg = dataclasses.replace(BENCH_CONFIG, model=args.model, dim=args.dim,
                               per_vertex_samples=args.per_vertex)
+    t0 = time.perf_counter()
     fv = SyncForce2Vec(synth_powerlaw_graph(n=args.n), cfg, MIN_WIDTH,
-                       HUB_WIDTH, device=dev)
+                       HUB_WIDTH, device=dev,
+                       hot_rows=args.hot_rows)
+    build_s = time.perf_counter() - t0
+    stats = fv.split_stats()
+    print(f"split_stats={json.dumps(stats)} (graph and trainer built in "
+          f"{build_s:.1f} s)", flush=True)
     n_pad = fv.layout.n_pad
     rows = n_pad if cfg.per_vertex_samples else -(-n_pad // cfg.batch_size)
     negs = torch.as_tensor(np.random.default_rng(7).integers(
@@ -133,7 +184,8 @@ def main(argv=None) -> int:
             fk.ell_edge_force_table(fv.model, x, xg, fv.edge_table,
                                     fv.inv_deg, fv.lr)
     res = {"card": card, "model": cfg.model, "n": args.n, "dim": cfg.dim,
-           "per_vertex_samples": cfg.per_vertex_samples, "repeats": []}
+           "per_vertex_samples": cfg.per_vertex_samples,
+           "split": {"stats": stats}, "repeats": []}
     for _ in range(3):
         r = {"ms_per_iter": cuda_ms(iteration, args.iters),
              "host_enqueue_ms": host_ms(iteration, args.iters),
@@ -141,6 +193,8 @@ def main(argv=None) -> int:
         res["repeats"].append(r)
         print(" ".join(f"{k}={v:.4f}" for k, v in r.items()) + f" [{card}]",
               flush=True)
+    if fv.hot_table is not None:
+        res["split"].update(split_launches(fv, x, xg, card, args.iters))
     res["edge_wrapper_host_us"] = 1e3 * host_ms(edge_call, 200)
     print(f"edge_wrapper_host_us={res['edge_wrapper_host_us']:.2f} [{card}]",
           flush=True)

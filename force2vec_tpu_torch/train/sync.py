@@ -14,6 +14,17 @@ iteration over the degree-sorted ELL layout (graphs/csr.py::SyncLayout):
      rows past ``n_pad``, which ``index_add_`` adds into their owner rows,
      and a width-0 entry zeroes the rows no bucket writes (the hub owners
      and padding);
+   * with the hot/cold gather split (``hot_rows > 0``; the layout's hot
+     suffix, the top ``hot_rows`` rows of the degree order, is the
+     relabeled rows ``[n - hot_rows, n)``): that launch over the cold
+     slots (``edge_table``), then a second over the hot slots
+     (``hot_table``, a partial table of the rows with hot slots), which
+     adds into the rows the first wrote.  The JAX package gathers the hot
+     slots from a compact copy of the suffix; on the card the suffix is a
+     range of the same replica, so the hot table holds ids of the whole
+     table.  The split gives the unsplit sums up to their order.  It is
+     off unless asked for: on the H100 it was slower at every replica
+     size and hot share measured (``PERF.md`` §9.6);
    * walk models (``rwalk``): one launch over every table row, whose
      neighbours are the row's ``[walk_length]`` walk targets, drawn each
      iteration by the walk engine (``draw_walks``);
@@ -45,7 +56,8 @@ card), X is replicated over the dp ranks and its dim split over the tp
 ranks:
 
 * dp: each rank runs the edge kernel over a work table of its 1/dp slice
-  of every bucket (the hub's virtual rows too); one
+  of every bucket (the hub's virtual rows too; with the split, the hot
+  slots of the same rows into the same local rows); one
   ``all_gather_into_tensor`` reassembles the slices, and a fixed
   permutation (``index_select``) puts them in row order.  The repulsion
   runs over the rank's 1/dp of the rows (``grouped_rep_force`` from the
@@ -55,10 +67,12 @@ ranks:
 * tp: a pair's scalar is a sum over the tp ranks' columns, which the
   fused kernels cannot make; the forces run as the split-dim kernels
   instead, over the attraction's and the repulsion's work tables laid end
-  to end (group-shared negatives as each row's own row of ns ids): one
+  to end (the split's cold and hot tables both; group-shared negatives
+  as each row's own row of ns ids): one
   ``tp_pair_partial`` launch over both, one ``all_reduce`` of the scalars
   over tp (counted in ``tp_all_reduces``), then a ``tp_pair_force`` launch
-  for each force on its slice of them.  The JAX package runs that
+  for each force on its slice of them (the hot table's adding into the
+  cold's rows).  The JAX package runs that
   step in jnp ops (Pallas off at tp > 1).
 """
 
@@ -88,10 +102,46 @@ class DeviceBucket:
     kernel call takes them (``SyncForce2Vec.device_buckets``)."""
 
     start: int  # first relabeled row of the bucket's update
-    nbr: torch.Tensor  # [rows, width] int32
+    nbr: torch.Tensor  # [rows, width] int32 (split: the cold slots)
     deg: torch.Tensor  # [rows] int32
     xi_row: torch.Tensor  # [rows] int32 table row of each bucket row
     owner_local: Optional[torch.Tensor] = None  # hub: [rows] int64, - start
+
+
+def _split_bucket_rows(b, hot_start: int):
+    """A split bucket's ``(cold_nbr, cold_deg, hot_nbr, hot_deg)``, int32
+    with one row per bucket row (``b.count``): each run's (``HotSpan``'s)
+    cold and hot rectangles put back in the bucket's row order, at the
+    widest run's width (the kernel reads no slot past a row's deg, so the
+    width costs no gather), hot ids made ids of the whole table
+    (``hot_flat + hot_start``), padding slots 0."""
+    cw = max(sp.cold_width for sp in b.hot_spans)
+    hw = max(sp.width for sp in b.hot_spans)
+    cn = np.zeros((b.count, cw), dtype=np.int32)
+    hn = np.zeros((b.count, hw), dtype=np.int32)
+    cd = np.zeros(b.count, dtype=np.int32)
+    hd = np.zeros(b.count, dtype=np.int32)
+    for sp in b.hot_spans:
+        r = slice(sp.row_off, sp.row_off + sp.count)
+        d = slice(sp.deg_off, sp.deg_off + sp.count)
+        cd[r], hd[r] = b.deg[d], b.hot_deg[d]
+        if sp.cold_width:
+            cn[r, :sp.cold_width] = b.nbr[
+                sp.cold_off: sp.cold_off + sp.count * sp.cold_width].reshape(
+                    sp.count, sp.cold_width)
+        if sp.width:
+            ids = b.hot_flat[sp.flat_off: sp.flat_off + sp.count * sp.width]
+            real = np.arange(sp.width)[None, :] < hd[r][:, None]
+            hn[r, :sp.width] = np.where(
+                real, ids.reshape(sp.count, sp.width) + hot_start, 0)
+    return cn, cd, hn, hd
+
+
+def _runs(mask: np.ndarray) -> list:
+    """``[(r0, r1)]``: the maximal runs of consecutive True rows."""
+    edges = np.flatnonzero(np.diff(np.concatenate(
+        [[0], mask.astype(np.int8), [0]])))
+    return list(zip(edges[::2].tolist(), edges[1::2].tolist()))
 
 
 def build_walk_tables(lay: SyncLayout):
@@ -132,7 +182,10 @@ class SyncForce2Vec:
     this rank's columns); the constructor raises ``ValueError`` above.
     ``spmd``: the dp and tp groups this rank trains in (see the module's
     docstring); the rows then align to the least multiple of ``row_align``
-    and dp.
+    and dp.  ``hot_rows``: the hot/cold split's hot suffix, 0 (the
+    default, no split: ``tools/profile_iter.py --hot-rows`` found it slower
+    on the H100 at every replica size and hot share tried, ``PERF.md``
+    §9.6); walk models take 0.
     """
 
     def __init__(
@@ -143,6 +196,7 @@ class SyncForce2Vec:
         hub_width: int = 256,
         row_align: int = 8,
         *,
+        hot_rows: int = 0,
         spmd: SpmdAxes = SpmdAxes(),
         device="cuda",
     ):
@@ -178,16 +232,24 @@ class SyncForce2Vec:
                     f"{self._dim} (dim {config.dim} over tp={spmd.n_tp}); "
                     "the batch schedule (--schedule batch) trains at any "
                     "dim")
+        self._dtype = getattr(torch, config.dtype)
+        self._gdt = (None if config.gather_dtype is None
+                     else getattr(torch, config.gather_dtype))
+        if hot_rows > 0 and self.model.attraction == "walk":
+            raise ValueError(f"{self.model.name} draws walks over the unsplit "
+                             "layout; the hot/cold split takes hot_rows=0")
+        self.hot_rows = int(hot_rows)
+        # hot/cold split under dp: the JAX package aligns the span
+        # rectangles to the dp row quantum, lcm(8, dp)
         self.layout = SyncLayout.build(
             graph, min_width=min_width, hub_width=hub_width,
             row_align=row_align,
             widths=SyncLayout.widths_for(min_width, hub_width, "mult8"),
+            hot_rows=self.hot_rows,
+            span_align=math.lcm(8, spmd.n_dp),
         )
         self.lr = config.resolve_lr(self.model)
-        self._dtype = getattr(torch, config.dtype)
         self._span_gen = torch.Generator(device=self.device)
-        self._gdt = (None if config.gather_dtype is None
-                     else getattr(torch, config.gather_dtype))
 
         lay, dev = self.layout, self.device
         self.inv_deg = torch.as_tensor(
@@ -205,7 +267,7 @@ class SyncForce2Vec:
         self._gid = (torch.arange(lay.n_pad, device=dev)
                      // max(config.batch_size, 1))
         self.device_buckets = []
-        self.edge_table = self._hub = None
+        self.edge_table = self.hot_table = self._hub = None
         if self.model.attraction == "walk":
             pool, base = build_walk_tables(lay)
             self.walk_pool = torch.as_tensor(pool, device=dev)
@@ -220,10 +282,22 @@ class SyncForce2Vec:
         if self._tp:
             self._tp_tables()
 
+    def _host_rows(self, b):
+        """A non-hub bucket's ``(nbr, deg, hot_nbr, hot_deg)`` on the host,
+        one row per bucket row: the layout's arrays, or with the split its
+        cold and hot slots (``_split_bucket_rows``; hot None unsplit)."""
+        if b.hot_spans is None:
+            return b.nbr, b.deg, None, None
+        return _split_bucket_rows(b, self.layout.hot_start)
+
     def _bucket_tables(self) -> None:
         """``device_buckets``, the hub among them, and the attraction's
-        work table (``edge_table``; under dp this rank's slices of it)."""
+        work tables (``edge_table``, and with the split ``hot_table``;
+        under dp this rank's slices of them)."""
         lay, dev = self.layout, self.device
+        rows = [None if b.owners is not None else self._host_rows(b)
+                for b in lay.buckets]
+        hot = []  # (hot_nbr, hot_deg, xi_row, out_begin) of the real rows
         for bi, b in enumerate(lay.buckets):
             if b.owners is not None:
                 self.device_buckets.append(DeviceBucket(
@@ -239,27 +313,47 @@ class SyncForce2Vec:
             end = (lay.buckets[bi + 1].start if bi + 1 < len(lay.buckets)
                    else lay.n)
             real = end - b.start
+            nbr, deg, hot_nbr, hot_deg = rows[bi]
+            xi_row = torch.arange(b.start, end, dtype=torch.int32, device=dev)
             self.device_buckets.append(DeviceBucket(
-                start=b.start,
-                nbr=torch.as_tensor(b.nbr[:real], device=dev),
-                deg=torch.as_tensor(b.deg[:real], device=dev),
-                xi_row=torch.arange(b.start, end, dtype=torch.int32,
-                                    device=dev)))
+                start=b.start, nbr=torch.as_tensor(nbr[:real], device=dev),
+                deg=torch.as_tensor(deg[:real], device=dev), xi_row=xi_row))
+            if hot_nbr is not None:
+                hot.append((hot_nbr[:real], hot_deg[:real], xi_row, b.start))
         self._hub = next((b for b in self.device_buckets
                           if b.owner_local is not None), None)
         if self.spmd.n_dp > 1:
-            self._dp_edge_table()
+            self._dp_edge_table(rows)
         else:
             self.edge_table = self._edge_table()
+            self.hot_table = self._hot_table(hot, self.edge_table.out_rows)
+
+    def _hot_table(self, buckets, out_rows: int):
+        """The split's hot work table: of each ``(hot_nbr, hot_deg, xi_row,
+        out_begin)`` (host arrays; xi_row on the device), the runs of rows
+        with hot slots, as entries of a ``partial`` table whose rows the
+        cold table (``edge_table``, the same ``out_rows``) has written;
+        None without hot slots."""
+        dev, parts = self.device, []
+        for nbr, deg, xi_row, ob in buckets:
+            for r0, r1 in _runs(deg > 0):
+                parts.append((torch.as_tensor(nbr[r0:r1], device=dev),
+                              torch.as_tensor(deg[r0:r1], device=dev),
+                              xi_row[r0:r1], ob + r0))
+        if not parts:
+            return None
+        return force_kernels.edge_work_table(parts, self.layout.n_pad,
+                                             out_rows, partial=True)
 
     def _tp_tables(self) -> None:
-        """tp: the attraction's work table (``edge_table``, or the walks of
-        this rank's rows) and the repulsion's (each of this rank's rows with
-        its ns sample ids) laid end to end
-        (``force_kernels.concat_work_tables``) as ``_tp_cat``, so that an
-        iteration makes one ``tp_pair_partial`` launch and one
-        ``all_reduce``.  ``_tp_att`` and ``_tp_rep`` are views of its two
-        halves, whose ids each iteration's walks and negatives overwrite."""
+        """tp: the attraction's work tables (``edge_table`` and, with the
+        split, ``hot_table``; or the walks of this rank's rows) and the
+        repulsion's (each of this rank's rows with its ns sample ids) laid
+        end to end (``force_kernels.concat_work_tables``) as ``_tp_cat``,
+        so that an iteration makes one ``tp_pair_partial`` launch and one
+        ``all_reduce``.  ``_tp_att``, ``_tp_hot`` (None unsplit) and
+        ``_tp_rep`` are views of its parts, whose ids each iteration's walks
+        and negatives overwrite."""
         fk, cfg = force_kernels, self.config
         r0, r1 = self._rank_rows()
 
@@ -270,10 +364,13 @@ class SyncForce2Vec:
                                            self._all_rows[r0:r1],
                                            self.layout.n_pad)
 
-        att = (per_row(cfg.walk_length, self._walk_deg)
-               if self.model.attraction == "walk" else self.edge_table)
-        self._tp_cat, (self._tp_att, self._tp_rep) = fk.concat_work_tables(
-            [att, per_row(cfg.ns, self._ns_deg)])
+        att = ([per_row(cfg.walk_length, self._walk_deg)]
+               if self.model.attraction == "walk" else
+               [t for t in (self.edge_table, self.hot_table) if t is not None])
+        self._tp_cat, views = fk.concat_work_tables(
+            att + [per_row(cfg.ns, self._ns_deg)])
+        self._tp_att, self._tp_rep = views[0], views[-1]
+        self._tp_hot = views[1] if len(views) == 3 else None
 
     def _edge_table(self) -> force_kernels.EdgeWorkTable:
         """The work table of ``device_buckets``: a non-hub bucket writes its
@@ -307,27 +404,31 @@ class SyncForce2Vec:
             return self._dp_rows()
         return 0, self.layout.n_pad
 
-    def _dp_edge_table(self) -> None:
-        """This dp rank's work table: the rank's 1/dp slice of every
+    def _dp_edge_table(self, host_rows) -> None:
+        """This dp rank's work tables: the rank's 1/dp slice of every
         bucket's padded rows (the hub's virtual rows too), written to
-        consecutive rows of a local ``[L, D]`` output; and the fixed
-        permutation of the gathered ``[dp·L + 1, D]`` slices (row dp·L
-        kept 0) into row order, ``_dp_src`` for the update's rows and
-        ``_dp_hub_src`` for the hub's partial rows."""
+        consecutive rows of a local ``[L, D]`` output, with the split the
+        hot slots of the same rows into the same local rows
+        (``hot_table``); and the fixed permutation of the gathered ``[dp·L
+        + 1, D]`` slices (row dp·L kept 0) into row order, ``_dp_src`` for
+        the update's rows and ``_dp_hub_src`` for the hub's partial rows."""
         lay, dev, sp = self.layout, self.device, self.spmd
         dp, d = sp.n_dp, sp.dp_index
-        parts, spans, off = [], [], 0
-        for b in lay.buckets:
+        parts, hot, spans, off = [], [], [], 0
+        on_dev = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        for b, hr in zip(lay.buckets, host_rows):
             per = b.count // dp
             rows = np.arange(d * per, (d + 1) * per)
             if b.owners is not None:
+                nbr, deg, hot_nbr, hot_deg = b.nbr, b.deg, None, None
                 xi = b.owners[rows]
             else:
+                nbr, deg, hot_nbr, hot_deg = hr
                 xi = np.minimum(b.start + rows, lay.n_pad - 1)
-            parts.append((torch.as_tensor(b.nbr[rows], device=dev),
-                          torch.as_tensor(b.deg[rows], device=dev),
-                          torch.as_tensor(xi.astype(np.int32), device=dev),
-                          off))
+            xi = on_dev(xi.astype(np.int32))
+            parts.append((on_dev(nbr[rows]), on_dev(deg[rows]), xi, off))
+            if hot_nbr is not None:
+                hot.append((hot_nbr[rows], hot_deg[rows], xi, off))
             spans.append((b, per, off))
             off += per
         local = off
@@ -344,9 +445,35 @@ class SyncForce2Vec:
             src[b.start + i] = (i // per) * local + o + i % per
         self.edge_table = force_kernels.edge_work_table(parts, lay.n_pad,
                                                         local)
+        self.hot_table = self._hot_table(hot, local)
         self._dp_src = torch.as_tensor(src, device=dev)
         self._dp_hub_src = (None if hub_src is None
                             else torch.as_tensor(hub_src, device=dev))
+
+    def split_stats(self) -> dict:
+        """The hot/cold split's accounting (the JAX package's
+        ``SyncForce2Vec.split_stats``): the padded slots of the layout's
+        hot rectangles and of the rest per iteration, their hot fraction and
+        the number of runs."""
+        lay = self.layout
+        hot = cold = rect = 0
+        for b in lay.buckets:
+            if b.hot_spans is None:
+                rect += b.count * b.width
+                continue
+            for sp in b.hot_spans:
+                hot += sp.rows_pad * sp.width
+                cold += sp.rows_pad * sp.cold_width
+        total = hot + cold + rect
+        return {
+            "hot_rows": self.hot_rows,
+            "hot_start": lay.hot_start,
+            "hot_slots_per_iter": hot,
+            "cold_slots_per_iter": cold + rect,
+            "hot_fraction": round(hot / total, 4) if total else 0.0,
+            "spans": sum(len(b.hot_spans) for b in lay.buckets
+                         if b.hot_spans),
+        }
 
     # -- embedding layout ---------------------------------------------------
 
@@ -440,20 +567,30 @@ class SyncForce2Vec:
         self.tp_all_reduces += 1
         force = fk.tp_pair_force_plain if plain else fk.tp_pair_force
         n_att = self._tp_att.nbr.shape[0]
-        return (force(model, "edge", x, xg, self._tp_att, part[:n_att],
-                      self.inv_deg, step),
-                force(model, "sample", x, xg, self._tp_rep, part[n_att:],
-                      self.inv_deg, step))
+        att = force(model, "edge", x, xg, self._tp_att, part[:n_att],
+                    self.inv_deg, step)
+        if self._tp_hot is not None:  # the hot slots add into the cold's rows
+            n_hot = self._tp_hot.nbr.shape[0]
+            force(model, "edge", x, xg, self._tp_hot,
+                  part[n_att: n_att + n_hot], self.inv_deg, step, out=att,
+                  accumulate=True)
+            n_att += n_hot
+        return att, force(model, "sample", x, xg, self._tp_rep, part[n_att:],
+                          self.inv_deg, step)
 
     def _edge_table_launch(self, x, xg, step, plain) -> torch.Tensor:
         """This rank's attraction over ``edge_table``: ``[n_pad + hub rows,
-        D]``, or under dp its slices' ``[L, D]`` (``_place_attraction``)."""
+        D]``, or under dp its slices' ``[L, D]`` (``_place_attraction``).
+        With the split, a second launch over ``hot_table`` adds the hot
+        slots' sums into the rows the first wrote."""
         fk = force_kernels
-        if plain:
-            return fk.ell_edge_force_table_plain(
-                self.model, x, xg, self.edge_table, self.inv_deg, step)
-        return fk.ell_edge_force_table(self.model, x, xg, self.edge_table,
-                                       self.inv_deg, step)
+        launch = fk.ell_edge_force_table_plain if plain else (
+            fk.ell_edge_force_table)
+        out = launch(self.model, x, xg, self.edge_table, self.inv_deg, step)
+        if self.hot_table is not None:
+            launch(self.model, x, xg, self.hot_table, self.inv_deg, step,
+                   out=out, accumulate=True)
+        return out
 
     def _dp_gather(self, local: torch.Tensor, rows: int) -> torch.Tensor:
         """``[rows, D]``: the dp ranks' ``local`` slices in rank order (one
