@@ -195,9 +195,37 @@ main path's configuration with the top n / 8 rows of the degree order hot:
     unsplit and split with a hot suffix of the L2's size, queued, in
     turns.
 
+path I, X held in bf16 (``TrainConfig(dtype="bfloat16")``, X its own
+gather table), at the main path's configuration:
+
+38. (I0) float16 and float64 X refused by name in the trainers'
+    constructors, and a bf16 X beside an f32 gather table by the
+    wrappers, with no launch; (I1) each kernel at bf16 X against its plain version elementwise,
+    within 1e-5 of Σ|terms| plus half an ulp of the bf16 output: the edge
+    table launch storing (tdist) and adding (bit for bit ``out.add_`` of
+    the stored result), ``grouped_rep_force``, ``ell_sample_force``
+    storing and adding, the split-dim pair over main's tables on tp = 2
+    halves, and sigmoid, fr, linlog and forceatlas on the widest bucket;
+    the bound rejects the edge launch with each row's last slot skipped
+    and with x_i read as zeros; each timed beside its bound and plain
+    version;
+39. (I2) one iteration through the kernels and the plain versions: no
+    cast of X, two ``add_``s, each element within the bf16 roundings the
+    two may each make their own way (one ulp each of the attraction, the
+    repulsion, the update and X, and of each hub partial row); then
+    against the f32-X iteration from the same X, its difference stated;
+40. (I3) 50 iterations on the main path and with ``-bs 1`` (exact launch
+    counts, no cast) and 20 batch-schedule iterations, each with half the
+    JAX package's distance gap at bf16 X;
+41. (I4) the vertex schedule at P = 1 against the sync iteration, its
+    exchange bytes at 2 bytes an element (P = 1 and a P = 4 layout), and
+    the dp = 2 slices on this card against one card;
+42. (I5) main queued with f32 X and with bf16 X in turns, at the bench
+    graph and at 1,048,576 vertices, and the batch schedule back to back.
+
 ``python3 chip_smoke.py --path F`` builds the kernels and runs path F
 alone (a check of the multi-card schedules on a host with several cards);
-``--path G`` runs path G alone, ``--path H`` path H.
+``--path G`` runs path G alone, ``--path H`` path H, ``--path I`` path I.
 
 The quality margins are half of what the JAX package reaches on the CPU
 with the same graph, configuration and iteration count
@@ -207,8 +235,10 @@ the kernels; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
+import copy
 import dataclasses
 import datetime
+import functools
 import io
 import json
 import os
@@ -250,7 +280,8 @@ from force2vec_tpu_torch.tools import (BENCH_CONFIG, HUB_WIDTH, MIN_WIDTH,
 from force2vec_tpu_torch.tools.profile_iter import device_breakdown
 from force2vec_tpu_torch.train.sync import DeviceBucket, SyncForce2Vec
 from force2vec_tpu_torch.train.checkpoint import load_checkpoint
-from force2vec_tpu_torch.train.trainer import Force2Vec, TrainConfig
+from force2vec_tpu_torch.train.trainer import (Force2Vec, TrainConfig,
+                                               round_to)
 from force2vec_tpu_torch.utils.profiling import Meter
 
 TRAIN_ITERS = 50
@@ -391,6 +422,16 @@ H_HOT_DIV = 8
 H_DP = 2
 H_BIG_N = 1 << 20
 SPLIT_F32_RTOL, SPLIT_F32_ATOL = 1e-5, 1e-6
+# Path I: X itself held in bf16 (no separate gather replica), and the JAX
+# package's distance gaps at bf16 X on the CPU after TRAIN_ITERS sync
+# iterations (tdist_x_bf16, tdist_per_vertex_x_bf16) and CLI_ITERS batch
+# iterations (tdist_batch_x_bf16), scripts/jax_quality_reference.py; each
+# held to half of it, as the f32 paths are.
+I_CONFIG = dataclasses.replace(BENCH_CONFIG, dtype="bfloat16",
+                               gather_dtype=None)
+JAX_TDIST_X_BF16_GAP = 0.8167409752598589
+JAX_TDIST_PV_X_BF16_GAP = 0.8169534115864345
+JAX_TDIST_BATCH_X_BF16_GAP = 0.4657693201425728
 # G2: (what, TrainConfig over the bench's, statistic, the JAX package's
 # value after TRAIN_ITERS sync iterations on the CPU from
 # scripts/jax_quality_reference.py: tdist_d32, tdist_per_vertex_d256,
@@ -450,12 +491,15 @@ CUDA_KERNELS = ("ell_edge_force_kernel", "grouped_rep_force_kernel",
 FORCE_KERNELS = ("ell_edge_force_kernel<", "ell_sample_force_kernel<",
                  "grouped_rep_force_kernel<", "tp_pair_partial_kernel<",
                  "tp_pair_force_kernel<")
-# (replica, lanes a row, pieces a lane, the row fills its class, model):
-# dim 128 in bf16 fills 16 lanes of one 16-byte piece; the repulsion's f32
-# rows 32 lanes
-MAIN_INSTANCES = ("ell_edge_force_kernel<bf16, 16, 1, 1, 0>",
-                  "ell_sample_force_kernel<bf16, 16, 1, 1, 0>",
-                  "grouped_rep_force_kernel<32, 1, 1, 0>")
+# (replica, X in bf16, lanes a row, pieces a lane, the row fills its class,
+# model): dim 128 in bf16 fills 16 lanes of one 16-byte piece; the
+# repulsion's f32 rows 32 lanes (X in bf16: path I)
+MAIN_INSTANCES = ("ell_edge_force_kernel<bf16, 0, 16, 1, 1, 0>",
+                  "ell_sample_force_kernel<bf16, 0, 16, 1, 1, 0>",
+                  "grouped_rep_force_kernel<0, 32, 1, 1, 0>",
+                  "ell_edge_force_kernel<bf16, 1, 16, 1, 1, 0>",
+                  "ell_sample_force_kernel<bf16, 1, 16, 1, 1, 0>",
+                  "grouped_rep_force_kernel<1, 32, 1, 1, 0>")
 RING_INSTANCES = ("take_sum_kernel<bf16>", "take_sum_kernel<f32>",
                   "tile_force_tc_kernel<bf16>", "tile_force_tc_kernel<f32>")
 # take_sum's ring depths (stages per block) timed
@@ -500,12 +544,23 @@ def max_err(a, b) -> float:
     return float((a - b).abs().max())
 
 
+def half_ulp(t):
+    """Half a unit in the last place of each element of a bf16 ``t`` (X
+    held in bf16: a kernel's f32 sum rounded once), as f32; 0 for f32."""
+    if t.dtype != torch.bfloat16:
+        return 0.0
+    _, e = torch.frexp(t.float())  # |t| in [2^(e-1), 2^e): ulp 2^(e-8)
+    return torch.where(t == 0, 0.0, torch.ldexp(torch.ones_like(e,
+                                                dtype=torch.float32), e - 9))
+
+
 def bound_ratio(got, terms, rtol: float = SUM_RTOL) -> float:
     """max over elements of |got - Σ terms| / (rtol · Σ |terms|), the sums
     over dim 1; at most 1 passes.  An element whose terms are all 0 gives
-    inf unless ``got`` is exactly 0 there."""
-    err = (got - terms.sum(dim=1)).abs()
-    scale = rtol * terms.abs().sum(dim=1)
+    inf unless ``got`` is exactly 0 there.  A bf16 ``got`` is held to half
+    an ulp of itself more (its rounding)."""
+    err = (got.float() - terms.sum(dim=1)).abs()
+    scale = rtol * terms.abs().sum(dim=1) + half_ulp(got)
     return float(torch.where(err == 0, 0.0, err / scale).max())
 
 
@@ -543,7 +598,9 @@ def held_ratio(got, terms_of, model, rtol: float = SUM_RTOL,
         for sign in (-1, 1))
     low = torch.minimum(lo, hi).sum(dim=1)
     high = torch.maximum(lo, hi).sum(dim=1)
-    scale = rtol * torch.maximum(lo.abs(), hi.abs()).sum(dim=1)
+    scale = (rtol * torch.maximum(lo.abs(), hi.abs()).sum(dim=1)
+             + half_ulp(got))
+    got = got.float()
     excess = (low - got).clamp(min=0) + (got - high).clamp(min=0)
     return float(torch.where(excess == 0, 0.0, excess / scale).max())
 
@@ -566,18 +623,18 @@ def ell_work(launches, x, xg, with_invd: bool, reads_out: bool = False):
     the launches ``(idx, deg, xi_row)`` must move and compute: each input
     read once (the x and replica rows they touch, the real slots' ids, deg,
     xi_row, for the edge force invd and, adding into ``out``, the output
-    rows) and each output row written once.  Slots past deg are skipped,
-    so they count nothing."""
-    dim = x.shape[1]
+    rows; x, invd and out in X's dtype) and each output row written once.
+    Slots past deg are skipped, so they count nothing."""
+    dim, xs = x.shape[1], x.element_size()
     xi = torch.cat([r for _, _, r in launches]).unique().numel()
     real = torch.cat([
         idx[torch.arange(idx.shape[1], device=idx.device)[None, :]
             < deg[:, None]] for idx, deg, _ in launches])
     rows = sum(r.numel() for _, _, r in launches)
-    nbytes = (xi * dim * 4 + (xi * 4 if with_invd else 0)
+    nbytes = (xi * dim * xs + (xi * xs if with_invd else 0)
               + real.unique().numel() * dim * xg.element_size()
               + real.numel() * 4 + rows * 8
-              + rows * dim * 4 * (2 if reads_out else 1))
+              + rows * dim * xs * (2 if reads_out else 1))
     return nbytes, real.numel()
 
 
@@ -732,7 +789,7 @@ def rep_phase(fv, x, xg, card):
     km = cuda_ms(lambda: fk.grouped_rep_force(*args), reps=20)
     pm = cuda_ms(lambda: fk.grouped_rep_force_plain(*args), reps=5)
     n, dim = x.shape
-    nbytes = 2 * n * dim * 4 + sg.numel() * sg.element_size()
+    nbytes = 2 * n * dim * x.element_size() + sg.numel() * sg.element_size()
     b_ms, by = bound_ms(nbytes, n * sg.shape[1]
                         * term_flops(fv.model, "sample", dim))
     say(f"grouped_rep_force rows={n} groups={sg.shape[0]} "
@@ -974,7 +1031,8 @@ def accumulate_check(model, x, xg, idx, deg, rows, step, what):
     """``ell_sample_force(..., out=base, accumulate=True)`` equals
     ``base.add_(ell_sample_force(...))`` bit for bit."""
     base = torch.randn(x.shape, device=x.device,
-                       generator=torch.Generator(x.device).manual_seed(19))
+                       generator=torch.Generator(x.device).manual_seed(19)
+                       ).to(x.dtype)
     got = fk.ell_sample_force(model, x, xg, idx, deg, rows, step,
                               out=base.clone(), accumulate=True)
     want = base.add_(fk.ell_sample_force(model, x, xg, idx, deg, rows, step))
@@ -2503,7 +2561,8 @@ def tp_partial_work(model, x, xg, table):
     written; and its f32 operations."""
     launches = [(nbr, deg, xi) for nbr, deg, xi, _ in table.parts()]
     nbytes, real = ell_work(launches, x, xg, False)
-    out_bytes = sum(r.numel() for _, _, r in launches) * x.shape[1] * 4
+    out_bytes = (sum(r.numel() for _, _, r in launches) * x.shape[1]
+                 * x.element_size())
     scalar = (2 if model.a_kind == "dot" else 3) * x.shape[1]
     return (lambda: fk.tp_pair_partial(model, x, xg, table),
             lambda: fk.tp_pair_partial_plain(model, x, xg, table),
@@ -2541,9 +2600,9 @@ def tp_timing(one, x, negs, card, errs):
     half = x[:, :d].contiguous()
     xg = half.to(torch.bfloat16)
     cat, halves = tp_tables(one, negs)
-    a = sum(fk.tp_pair_partial(model, x[:, c: c + d].contiguous(),
-                               x[:, c: c + d].to(torch.bfloat16), cat)
-            for c in range(0, x.shape[1], d))
+    cols = [x[:, c: c + d].contiguous() for c in range(0, x.shape[1], d)]
+    a = sum(fk.tp_pair_partial(model, h, h.to(torch.bfloat16), cat)
+            for h in cols)
     work = [("tp_pair_partial", "both", tp_partial_work(model, half, xg,
                                                         cat))]
     for kind, t, s in halves:
@@ -3189,7 +3248,8 @@ def edge_accumulate_check(model, x, xg, table, invd, step, what):
     ``base.add_`` of the same launch stored onto zeros, bit for bit (rows
     outside a partial table's entries: base + 0)."""
     base = torch.randn((table.out_rows, x.shape[1]), device=x.device,
-                       generator=torch.Generator(x.device).manual_seed(23))
+                       generator=torch.Generator(x.device).manual_seed(23)
+                       ).to(x.dtype)
     got = fk.ell_edge_force_table(model, x, xg, table, invd, step,
                                   out=base.clone(), accumulate=True)
     want = base.add_(fk.ell_edge_force_table(
@@ -3316,11 +3376,18 @@ def split_dp_phase(graph, dev, card, one, x, negs_t):
     return counts
 
 
+@functools.lru_cache(maxsize=None)
+def big_graph():
+    """``synth_powerlaw_graph`` at H_BIG_N vertices (its bf16 replica past
+    the L2), built once for paths H and I."""
+    return synth_powerlaw_graph(n=H_BIG_N)
+
+
 def split_big_graph_phase(dev, card):
     """Main at H_BIG_N vertices (its bf16 replica past the L2), unsplit and
     split with a hot suffix of the L2's size, queued ahead of the device in
     turns (unsplit, split, split, unsplit); returns the record."""
-    graph = synth_powerlaw_graph(n=H_BIG_N)
+    graph = big_graph()
     l2 = torch.cuda.get_device_properties(dev).L2_cache_size
     hot = l2 // (BENCH_CONFIG.dim * 2)
     runners = {h: SyncForce2Vec(graph, BENCH_CONFIG, MIN_WIDTH, HUB_WIDTH,
@@ -3422,6 +3489,434 @@ def split_path(graph, dev, card, big=True):
     return rec, counts
 
 
+# -- path I: X held in bf16 ---------------------------------------------------
+
+
+def x_bf16_fault_ratios(model, x, table, invd, step, got):
+    """Bound ratios of a storing table launch's output ``got`` against two
+    faulty plain versions: each row's last slot skipped, and x_i read as
+    zeros (the gather rows kept).  Both must be above 1."""
+    skip = zero = 0.0
+    for nbr, deg, xi_row, ob in table.parts():
+        part = got[ob: ob + nbr.shape[0]]
+        skip = max(skip, bound_ratio(part, fk.ell_edge_force_terms(
+            model, x, x, nbr, (deg - 1).clamp(min=0), xi_row, invd, step)))
+        zero = max(zero, bound_ratio(part, fk.ell_edge_force_terms(
+            model, torch.zeros_like(x), x, nbr, deg, xi_row, invd, step)))
+    return skip, zero
+
+
+def x_bf16_tp_phase(fv, x, negs_t, step, card):
+    """The split-dim pair at bf16 X over main's tables, as a tp = 2 rank
+    runs it (its half of the columns, X its own gather table): each rank's
+    ``tp_pair_partial`` over the attraction's and repulsion's tables laid
+    end to end, the two summed (the all_reduce, in f32), then
+    ``tp_pair_force`` on each table on each half, every launch against
+    its plain version; then both kernels timed (``tp_timing``).  Returns
+    their ``kernels`` line records."""
+    model = fv.model
+    cat, halves = tp_tables(fv, negs_t)
+    d = x.shape[1] // F_TP
+    cols = [x[:, c: c + d].contiguous() for c in range(0, x.shape[1], d)]
+    parts = [fk.tp_pair_partial(model, h, h, cat) for h in cols]
+    errs = {"tp_pair_partial": max(
+        (tp_partial_ratio(model, h, h, cat, p) for h, p in zip(cols, parts)),
+        key=lambda r: r[1])}
+    a = sum(parts)
+    worst = (0.0, 0.0)
+    for kind, t, s in halves:
+        for h in cols:
+            got = fk.tp_pair_force(model, kind, h, h, t,
+                                   a[s: s + t.nbr.shape[0]], fv.inv_deg, step)
+            check(got.dtype == torch.bfloat16, "tp_pair_force wrote "
+                                               f"{got.dtype} for a bf16 X")
+            r = tp_force_ratio(model, kind, h, h, t, a[s: s + t.nbr.shape[0]],
+                               fv.inv_deg, step, got)
+            worst = max(worst, r, key=lambda v: v[1])
+    errs["tp_pair_force"] = worst
+    say("I1 split-dim pair at bf16 X (tp=2 halves, one card): "
+        + "; ".join(f"{k} max_abs_err={e:.3e} bound_ratio={r:.4f}"
+                    for k, (e, r) in errs.items()))
+    check(all(r <= 1.0 for _, r in errs.values()),
+          "a split-dim launch at bf16 X exceeds its bound")
+    return tp_timing(fv, x, negs_t, card, {k: e for k, (e, _) in
+                                             errs.items()})
+
+
+def x_bf16_kernels_phase(fv, x, negs_t, card):
+    """I1: every kernel of the bf16-X paths at the bench shapes, on X and
+    the bf16 tables it gathers from itself, against its plain version
+    elementwise (1e-5 of Σ|terms| plus half an ulp of the bf16 output):
+    the edge table launch storing (tdist; sigmoid, fr, linlog and
+    forceatlas on the widest bucket) and adding (bit for bit ``out.add_``
+    of the stored result), ``grouped_rep_force``, ``ell_sample_force``
+    adding, and the split-dim pair; two planted faults; each timed beside
+    its bound and plain version.  Returns {kernel: record}."""
+    model, step = fv.model, round_to(fv.lr, torch.bfloat16)
+    t, invd = fv.edge_table, fv.inv_deg
+    check(x.dtype == invd.dtype == torch.bfloat16, "path I holds X and "
+                                                   "inv_deg in bf16")
+    rec = {}
+    e, ratio = check_table(model, x, x, t, invd, step, "bf16 X tdist")
+    edge_accumulate_check(model, x, x, t, invd, step, "bf16 X")
+    got = fk.ell_edge_force_table(model, x, x, t, invd, step)
+    check(got.dtype == torch.bfloat16, f"the edge launch wrote {got.dtype}")
+    skip, zero = x_bf16_fault_ratios(model, x, t, invd, step, got)
+    say(f"I1 planted faults: each row's last slot skipped bound_ratio="
+        f"{skip:.2f}, x_i read as zeros bound_ratio={zero:.2f} (must be > 1)")
+    check(skip > 1.0, "the bf16-X bound passed a launch that skips each "
+                      "row's last slot")
+    check(zero > 1.0, "the bf16-X bound passed a launch that reads x_i as 0")
+    args = (model, x, x, t, invd, step)
+    nbytes, terms = ell_work([p[:3] for p in t.parts()], x, x, True)
+    b_ms, by = bound_ms(nbytes, terms * term_flops(model, "edge", x.shape[1]))
+    rec["ell_edge_force"] = dict(
+        max_abs_err=e, bound_ratio=ratio,
+        ms=cuda_ms(lambda: fk.ell_edge_force_table(*args), reps=20),
+        queued_ms=queued_device_ms(lambda: fk.ell_edge_force_table(*args),
+                                   reps=20),
+        plain_ms=cuda_ms(lambda: fk.ell_edge_force_table_plain(*args),
+                         reps=3),
+        bound_ms=b_ms, bound_by=by)
+
+    sg = bench_samples(fv, x, seed=5)
+    e, ratio = check_rep(model, x, sg, step, "bf16 X tdist")
+    n, dim = x.shape
+    rargs = (model, BENCH_CONFIG.batch_size, x, sg, step)
+    b_ms, by = bound_ms(2 * n * dim * 2 + sg.numel() * 2,
+                        n * sg.shape[1] * term_flops(model, "sample", dim))
+    rec["grouped_rep_force"] = dict(
+        max_abs_err=e, bound_ratio=ratio,
+        ms=cuda_ms(lambda: fk.grouped_rep_force(*rargs), reps=20),
+        queued_ms=queued_device_ms(lambda: fk.grouped_rep_force(*rargs),
+                                   reps=20),
+        plain_ms=cuda_ms(lambda: fk.grouped_rep_force_plain(*rargs), reps=3),
+        bound_ms=b_ms, bound_by=by)
+
+    n_pad, ns = fv.layout.n_pad, BENCH_CONFIG.ns
+    idx = torch.randint(0, fv.graph.n - 1, (n_pad, ns), dtype=torch.int32,
+                        generator=torch.Generator(x.device).manual_seed(11),
+                        device=x.device)
+    deg = torch.full((n_pad,), ns, dtype=torch.int32, device=x.device)
+    rows = torch.arange(n_pad, dtype=torch.int32, device=x.device)
+    e, ratio = check_sample(model, x, x, idx, deg, rows, step, "bf16 X tdist")
+    accumulate_check(model, x, x, idx, deg, rows, step, "bf16 X")
+    upd = torch.zeros_like(x)
+    sargs = (model, x, x, idx, deg, rows, step)
+    kw = dict(out=upd, accumulate=True)
+    nbytes, terms = ell_work([(idx, deg, rows)], x, x, False, reads_out=True)
+    b_ms, by = bound_ms(nbytes, terms * term_flops(model, "sample", dim))
+    rec["ell_sample_force"] = dict(
+        max_abs_err=e, bound_ratio=ratio,
+        ms=cuda_ms(lambda: fk.ell_sample_force(*sargs, **kw), reps=20),
+        queued_ms=queued_device_ms(lambda: fk.ell_sample_force(*sargs, **kw),
+                                   reps=20),
+        plain_ms=cuda_ms(lambda: fk.ell_sample_force_plain(*sargs, **kw),
+                         reps=3),
+        bound_ms=b_ms, bound_by=by)
+
+    b = widest_bucket(fv)
+    sub = torch.arange(b.nbr.shape[0], device=x.device)
+    for name in ("sigmoid", "fr", "linlog", "forceatlas"):
+        m = get_model(name)
+        e_e, r_e = check_edge(m, x, x, b, invd, 0.02, f"bf16 X {name}")
+        e_r, r_r = check_rep(m, x, sg, 0.02, f"bf16 X {name}")
+        e_s, r_s = check_sample(m, x, x, idx[sub], deg[sub],
+                                b.xi_row, 0.02, f"bf16 X {name}")
+        say(f"I1 {name} at bf16 X: edge (widest bucket) max_abs_err="
+            f"{e_e:.3e} bound_ratio={r_e:.4f}; repulsion {e_r:.3e} / "
+            f"{r_r:.4f}; sample (the bucket's rows) {e_s:.3e} / {r_s:.4f}")
+    for k, r in rec.items():
+        say(f"I1 {k} at bf16 X: max_abs_err={r['max_abs_err']:.3e} "
+            f"bound_ratio={r['bound_ratio']:.4f} kernel_ms={r['ms']:.4f} "
+            f"queued={r['queued_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) [{card}]")
+    rec.update(x_bf16_tp_phase(fv, x, negs_t, step, card))
+    return rec
+
+
+def x_casts(fn, x) -> int:
+    """How many times ``fn()`` casts a tensor of ``x``'s shape
+    (``aten::_to_copy``): the f32-X iteration's bf16 replica of X."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU],
+            record_shapes=True) as prof:
+        fn()
+    return sum(1 for e in prof.events() if e.name == "aten::_to_copy"
+               and e.input_shapes and list(e.input_shapes[0]) == list(x.shape))
+
+
+def rounding_bound(fv, x0, negs_t):
+    """``[n_pad, D]`` f32: per element, how far two bf16-X iterations of
+    ``fv`` from ``x0`` and the same negatives may lie apart when their f32
+    sums agree but each rounds its own way: one bf16 ulp each of the
+    attraction, the repulsion, the update (their sum) and X + update, and
+    for a hub owner one of each partial row summed into its attraction;
+    each at the plain versions' values."""
+    def ulp(t):
+        return 2 * half_ulp(t)
+
+    step = round_to(fv.lr, torch.bfloat16)
+    out = fv._edge_table_launch(x0, x0, step, True)
+    hub = torch.zeros(x0.shape, device=x0.device)
+    if fv._hub is not None:
+        hub[fv._hub.start: fv.layout.n].index_add_(
+            0, fv._hub.owner_local, ulp(out[fv.layout.n_pad:]))
+    att = fv._place_attraction(out)
+    rep = fv._rank_repulsion(x0, x0, negs_t, step, True)
+    upd = (att.float() + rep.float()).to(torch.bfloat16)
+    new = (x0.float() + upd.float()).to(torch.bfloat16)
+    return ulp(att) + ulp(rep) + ulp(upd) + ulp(new) + hub
+
+
+def ulp_ratio(got, want, bound):
+    """max over elements of |got - want| / ``bound`` (``rounding_bound``);
+    at most 1 passes."""
+    d = (got.float() - want.float()).abs()
+    return float(torch.where(d == 0, 0.0, d / bound).max())
+
+
+def x_bf16_iteration_phase(fv, x0, negs_t, card):
+    """I2: one bf16-X iteration through the kernels and through the plain
+    versions, from one X and negatives: no cast of X (no ``_to_copy`` of
+    its shape; the f32-X iteration makes one), two ``add_``s (the
+    repulsion's and X += update), each element within the roundings the two
+    may each make their own way (``rounding_bound``); then against the
+    f32-X iteration (bf16 gathers) from the same X, its difference stated.
+    Returns the bf16 iteration's max |dX| from the f32 one."""
+    run = lambda xx, **kw: fv.run_iteration(xx, negs_t, **kw)  # noqa: E731
+    casts = x_casts(lambda: run(x0.clone()), x0)
+    adds = count_ops(lambda: run(x0.clone()), "aten::add_")
+    f32 = SyncForce2Vec(fv.graph, BENCH_CONFIG, MIN_WIDTH, HUB_WIDTH,
+                        device=x0.device)
+    x32 = x0.float()
+    f32_casts = x_casts(lambda: f32.run_iteration(x32.clone(), negs_t), x32)
+    say(f"I2 a bf16-X iteration: {casts} casts of X, {adds} add_ calls (an "
+        f"f32-X iteration: {f32_casts} casts of X)")
+    check(f32_casts == 1, f"an f32-X iteration casts X {f32_casts} times")
+    check(casts == 0, f"a bf16-X iteration casts {casts} times, not 0")
+    check(adds == 2, f"a bf16-X iteration calls add_ {adds} times, not 2")
+    a, b = run(x0.clone()), run(x0.clone(), plain=True)
+    check(a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all()),
+          f"the bf16-X iteration: {a.dtype}, finite "
+          f"{bool(torch.isfinite(a).all())}")
+    ratio = ulp_ratio(a, b, rounding_bound(fv, x0, negs_t))
+    say(f"I2 iteration kernels vs plain at bf16 X: max |dX| "
+        f"{max_err(a, b):.3e}, rounding ratio {ratio:.4f} (needs <= 1)")
+    check(ratio <= 1.0, "the bf16-X iteration differs from its plain version "
+                        "by more than their roundings")
+    c = f32.run_iteration(x32.clone(), negs_t)
+    d = (a.float() - c).abs()
+    say(f"I2 bf16-X iteration vs the f32-X iteration (bf16 gathers) from "
+        f"the same X: max |dX| {float(d.max()):.3e}, mean "
+        f"{float(d.mean()):.3e}")
+    check(bool(torch.isfinite(c).all()), "the f32-X iteration is not finite")
+    return float(d.max())
+
+
+def x_bf16_train_phase(graph, dev, card):
+    """I3: 50 iterations at bf16 X with exact launch counts (one edge and
+    one repulsion launch an iteration, no cast of X), group-shared and
+    ``-bs 1``; the batch schedule at bf16
+    for CLI_ITERS iterations; each with half the JAX package's distance
+    gap at bf16 X.  Returns the launch counts."""
+    counts = {}
+    for what, over, gap in (
+            ("main", {}, JAX_TDIST_X_BF16_GAP),
+            ("-bs 1", dict(per_vertex_samples=True), JAX_TDIST_PV_X_BF16_GAP)):
+        fv = SyncForce2Vec(graph, dataclasses.replace(I_CONFIG, **over),
+                           MIN_WIDTH, HUB_WIDTH, device=dev)
+        xs = fv.init_embedding(seed=1)
+        casts = x_casts(lambda: fv.run_span(xs, 1, 1), xs)
+        check(casts == 0, f"a bf16-X training iteration ({what}) casts "
+                          f"{casts} times")
+        pv = bool(over)
+        emb, c = train_phase(fv, {
+            "ell_edge_force": TRAIN_ITERS,
+            "grouped_rep_force": 0 if pv else TRAIN_ITERS,
+            "ell_sample_force": TRAIN_ITERS if pv else 0}, card)
+        add_counts(counts, c)
+        distance_gap_check(graph, emb.float(), 0.5 * gap,
+                           f"bf16 X {what} (JAX {gap:.4f})")
+    fv = Force2Vec(graph, I_CONFIG, device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    emb = fv.train(iters=CLI_ITERS, seed=1)
+    wall = time.perf_counter() - t0
+    c = read_counts()
+    check(not any(c.values()), f"the batch schedule launched a kernel: {c}")
+    check(emb.dtype == torch.bfloat16 and bool(torch.isfinite(emb).all()),
+          "the bf16-X batch run's X")
+    say(f"I3 batch schedule at bf16 X: {CLI_ITERS} iterations in {wall:.2f} "
+        f"s [{card}]")
+    distance_gap_check(graph, emb.float(), 0.5 * JAX_TDIST_BATCH_X_BF16_GAP,
+                       f"bf16 X batch (JAX {JAX_TDIST_BATCH_X_BF16_GAP:.4f})",
+                       iters=CLI_ITERS)
+    return counts
+
+
+def x_bf16_vertex_phase(graph, dev, card, fv, x0, negs_t):
+    """I4: ``VertexShardedForce2Vec`` at P = 1 with bf16 X, its iteration
+    against the bf16 sync iteration (every group sharing the pool), each
+    element within their roundings (``rounding_bound``); its exchange bytes
+    at X's itemsize (P = 1, and a P = 4 layout of the bench graph); then
+    the sync runner's dp = 2 slices on this card against one card.
+    Returns the dp launch counts."""
+    cfg, ns = I_CONFIG, BENCH_CONFIG.ns
+    v = VertexShardedForce2Vec(graph, cfg, min_width=MIN_WIDTH,
+                               hub_width=HUB_WIDTH, device=dev)
+    x_host = fv.unpad_embedding(x0)
+    pool = np.random.default_rng(7).integers(0, graph.n - 1, ns).astype(
+        np.int32)
+    ng = -(-fv.layout.n_pad // cfg.batch_size)
+    shared = torch.as_tensor(np.broadcast_to(pool, (ng, ns)).copy(),
+                             device=dev)
+    want = fv.unpad_embedding(fv.run_iteration(x0.clone(), shared))
+    xv = v.pad_embedding(x_host)
+    check(xv.dtype == torch.bfloat16, f"the vertex X is {xv.dtype}")
+    got = v.unpad_embedding(v.run_iteration(xv, pool))
+    ratio = ulp_ratio(got, want, fv.unpad_embedding(
+        rounding_bound(fv, x0, shared)))
+    stats = {}
+    for P in (1, 4):
+        runner = copy.copy(v)
+        if P > 1:
+            runner.layout = VertexShardLayout.build(
+                graph, P, min_width=MIN_WIDTH, hub_width=HUB_WIDTH)
+        cs = runner.comm_stats()
+        emb_rows = sum(val for k, val in cs.items() if k.endswith(
+            ("_rows_sent", "_rows_recv", "_rows")))
+        check(cs["bytes_per_iter_per_shard"] == emb_rows * v.row_width * 2,
+              f"P={P} exchange bytes {cs['bytes_per_iter_per_shard']} are "
+              f"not {emb_rows} rows of bf16")
+        stats[P] = cs["bytes_per_iter_per_shard"]
+    say(f"I4 vertex P=1 at bf16 X vs the bf16 sync iteration: max |dX| "
+        f"{max_err(got, want):.3e}, rounding ratio {ratio:.4f} (needs <= 1); "
+        f"exchange bytes per iteration per rank at bf16: P=1 {stats[1]}, "
+        f"P=4 layout {stats[4]} ({stats[4] / 1e6:.2f} MB)")
+    check(ratio <= 1.0, "the bf16 vertex iteration differs from sync")
+
+    step = round_to(fv.lr, torch.bfloat16)
+    ranks = [SyncForce2Vec(graph, cfg, MIN_WIDTH, HUB_WIDTH,
+                           spmd=SpmdAxes(n_dp=H_DP, dp_index=k), device=dev)
+             for k in range(H_DP)]
+    reset_counts()
+    outs = [r._edge_table_launch(x0, x0, step, False) for r in ranks]
+    reps = [r._rank_repulsion(x0, x0, negs_t, step, False) for r in ranks]
+    torch.cuda.synchronize(dev)
+    counts = read_counts()
+    check(counts == {**{k: 0 for k in counts}, "ell_edge_force": H_DP,
+                     "grouped_rep_force": H_DP},
+          f"the bf16 dp slices' launches {counts}")
+    g = torch.cat(outs + [torch.zeros_like(outs[0][:1])])
+    new = x0 + ranks[0]._dp_place(g).add_(torch.cat(reps))
+    one = fv.run_iteration(x0.clone(), negs_t)
+    ratio = ulp_ratio(new, one, rounding_bound(fv, x0, negs_t))
+    say(f"I4 dp={H_DP} slices at bf16 X on one card: launches {counts}; put "
+        f"in place vs one card max |dX| {max_err(new, one):.3e}, rounding "
+        f"ratio {ratio:.4f} [{card}]")
+    check(ratio <= 1.0, "the bf16 dp slices' update differs from one card's")
+    return counts
+
+
+def x_bf16_timing_phase(graph, dev, card):
+    """I5: main queued ahead of the device with f32 X (bf16 gathers) and
+    with bf16 X, in turns (f32, bf16, bf16, f32), at the bench graph and
+    at H_BIG_N vertices; the batch schedule at f32 and bf16 X, back to
+    back, in turns.  Returns the record."""
+    out = {}
+    for g in (graph, big_graph()):
+        runners = {dt: SyncForce2Vec(g, c, MIN_WIDTH, HUB_WIDTH, device=dev)
+                   for dt, c in (("float32", BENCH_CONFIG),
+                                 ("bfloat16", I_CONFIG))}
+        ng = -(-runners["float32"].layout.n_pad // BENCH_CONFIG.batch_size)
+        negs = torch.randint(0, g.n - 1, (ng, BENCH_CONFIG.ns),
+                             dtype=torch.int32, device=dev,
+                             generator=torch.Generator(dev).manual_seed(3))
+        xs = {dt: fv.init_embedding(seed=1) for dt, fv in runners.items()}
+        times = {"float32": [], "bfloat16": []}
+        for dt in ("float32", "bfloat16", "bfloat16", "float32"):
+            fv = runners[dt]
+            times[dt].append(queued_device_ms(
+                lambda: fv.run_iteration(xs[dt], negs), reps=10))
+        for dt, x in xs.items():
+            check(bool(torch.isfinite(x).all()), f"n={g.n} {dt}: X is not "
+                                                 "finite")
+        say(f"I5 main at n={g.n}, queued ms/iteration in turns: f32 X "
+            f"{times['float32']}, bf16 X {times['bfloat16']} [{card}]")
+        out[g.n] = times
+    batch = {"float32": [], "bfloat16": []}
+    runners = {dt: Force2Vec(graph, dataclasses.replace(
+        BENCH_CONFIG, gather_dtype=None, dtype=dt), device=dev)
+        for dt in batch}
+    xs = {dt: fv.init_embedding(seed=1) for dt, fv in runners.items()}
+    for dt in ("float32", "bfloat16", "bfloat16", "float32"):
+        fv = runners[dt]
+        batch[dt].append(cuda_ms(lambda: fv.run_span(xs[dt], 1, 1), reps=2,
+                                 warmup=1))
+    say(f"I5 batch schedule at the bench graph, ms/iteration back to back in "
+        f"turns: f32 X {batch['float32']}, bf16 X {batch['bfloat16']} "
+        f"[{card}]")
+    out["batch"] = batch
+    return out
+
+
+def x_bf16_refusals(graph, dev, fv, x):
+    """The dtypes the kernels lack (float16, float64) are refused by name
+    in the sync and vertex constructors, and a bf16 X beside an f32 gather
+    table by the wrappers, with no launch."""
+    reset_counts()
+    for dtype in ("float16", "float64"):
+        cfg = dataclasses.replace(I_CONFIG, dtype=dtype)
+        for make in (lambda: SyncForce2Vec(graph, cfg, MIN_WIDTH, HUB_WIDTH,
+                                           device=dev),
+                     lambda: VertexShardedForce2Vec(graph, cfg, device=dev)):
+            try:
+                make()
+            except ValueError as e:
+                check(dtype in str(e), f"the refusal of {dtype} says: {e}")
+            else:
+                raise RuntimeError(f"a {dtype} X was not refused")
+    try:
+        fk.ell_edge_force_table(fv.model, x, x.float(), fv.edge_table,
+                                fv.inv_deg, fv.lr)
+    except ValueError as e:
+        check("gathers from bf16" in str(e), f"the wrapper said: {e}")
+    else:
+        raise RuntimeError("a bf16 X beside an f32 gather table ran")
+    check(not any(read_counts().values()), "a refused call launched")
+    say("I0 float16 and float64 X refused by name before any launch; a bf16 "
+        "X beside an f32 gather table refused")
+
+
+def x_bf16_path(graph, dev, card):
+    """Path I: X held in bf16 (``TrainConfig(dtype="bfloat16")``) at the
+    main path's configuration.  Returns (each kernel's bf16-X record, the
+    launch counts of its drives, the timing record)."""
+    t0 = time.perf_counter()
+    fv = SyncForce2Vec(graph, I_CONFIG, MIN_WIDTH, HUB_WIDTH, device=dev)
+    x0 = fv.init_embedding(seed=1)
+    negs_t = torch.as_tensor(np.random.default_rng(7).integers(
+        0, graph.n - 1, size=fv._neg_shape).astype(np.int32), device=dev)
+    x_bf16_refusals(graph, dev, fv, x0)
+    rec = x_bf16_kernels_phase(fv, x0, negs_t, card)
+    say(f"path I1: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rec["vs_f32_iteration_max_dx"] = x_bf16_iteration_phase(fv, x0, negs_t,
+                                                            card)
+    say(f"path I2: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts = x_bf16_train_phase(graph, dev, card)
+    say(f"path I3: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    add_counts(counts, x_bf16_vertex_phase(graph, dev, card, fv, x0, negs_t))
+    say(f"path I4: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    timing = x_bf16_timing_phase(graph, dev, card)
+    say(f"path I5: {time.perf_counter() - t0:.1f} s")
+    return rec, counts, timing
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check needs the card",
@@ -3464,6 +3959,16 @@ def main() -> int:
                        f"{missing}")
 
     graph = synth_powerlaw_graph()
+    if sys.argv[1:] == ["--path", "I"]:
+        t0 = time.perf_counter()
+        rec, counts, timing = x_bf16_path(graph, dev, card)
+        say(f"path I (bf16 X): {time.perf_counter() - t0:.1f} s")
+        say(json.dumps({"path_I_launches": counts, "x_bf16": rec,
+                        "timing": {str(k): v for k, v in timing.items()}}))
+        say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if sys.argv[1:] == ["--path", "H"]:
         t0 = time.perf_counter()
         split, counts = split_path(graph, dev, card)
@@ -3528,6 +4033,11 @@ def main() -> int:
     t0 = time.perf_counter()
     edge["split"], counts_split = split_path(graph, dev, card)
     say(f"path H (hot/cold split): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    x_bf16, counts_bf16, x_bf16_timing = x_bf16_path(graph, dev, card)
+    say(f"path I (bf16 X): {time.perf_counter() - t0:.1f} s")
+    timing = {str(k): v for k, v in x_bf16_timing.items()}
+    say(f"bf16 X timing: {json.dumps(timing)} [{card}]")
     say(f"batch schedule (bench graph, -batch 256 -dim 128): "
         f"{json.dumps(batch)} [{card}]")
 
@@ -3535,7 +4045,8 @@ def main() -> int:
              "rwalk": counts_rw, "probes": counts_probes,
              "file": counts_file, "cli": counts_cli,
              "vertex": counts_vertex, "dp": counts_dp, "tp": counts_tp,
-             "widths": counts_widths, "split": counts_split}
+             "widths": counts_widths, "split": counts_split,
+             "x_bf16": counts_bf16}
     for name, m in (("ell_edge_force", edge), ("grouped_rep_force", rep),
                     ("ell_sample_force", sample)):
         (m["queued_ms_dim64"], m["bound_ms_dim64"],
@@ -3546,6 +4057,7 @@ def main() -> int:
     for name, m in (("ell_edge_force", edge), ("grouped_rep_force", rep),
                     ("ell_sample_force", sample), *tp_rec.items()):
         m["row_classes"] = classes[name]
+        m["x_bf16"] = x_bf16[name]
 
     def entry(name, source, replaces, measured):
         by_path = {p: c.get(name, 0) for p, c in paths.items()}

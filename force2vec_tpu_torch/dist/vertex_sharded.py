@@ -19,13 +19,15 @@ iteration:
    choices among ``neg_pool`` rows (``pool``);
 3. waits for the exchange, then the halo-dependent slabs: one work-table
    launch gathering from ``[x_loc | hot | halo]``; the hub's partial rows
-   go into their owners by ``index_add_``;
+   go into their owners by ``index_add_`` (``ops/segment.py::add_rows``);
 4. applies the update to its own rows: no collective.
 
 The pool rows are a masked gather of the rows each rank owns and one
 ``all_reduce``; their ids come from a generator seeded alike on every
-rank.  At P = 1 no collective runs.  Gathers and the exchange stay in X's
-dtype (f32), as in the JAX package: ``gather_dtype`` is ignored.
+rank.  At P = 1 no collective runs.  X, the ``[x_loc | hot | halo]``
+table, the exchange's buffers, the pool rows and the update are in X's
+dtype (``config.dtype``: f32 or bf16, ``force_kernels.X_DTYPES``), as in
+the JAX package: ``gather_dtype`` is ignored.
 
 For ``rwalk`` the walk engine runs distributed (per step an
 ``all_gather_into_tensor`` of the int32 frontier and an ``all_reduce`` of
@@ -67,8 +69,9 @@ from force2vec_tpu_torch.graphs.csr import Graph
 from force2vec_tpu_torch.graphs.partition import VertexShardLayout
 from force2vec_tpu_torch.models.forces import ForceModel, get_model
 from force2vec_tpu_torch.ops import force_kernels as fk
+from force2vec_tpu_torch.ops.segment import add_rows
 from force2vec_tpu_torch.train.trainer import (TrainConfig, iteration_seed,
-                                               step_at)
+                                               round_to, step_at)
 
 _INT32_MAX = 2**31 - 1
 _INIT_CHUNK = 1 << 20  # rows of the initial X drawn at a time
@@ -119,7 +122,7 @@ class ShardTables:
     free: Optional[fk.EdgeWorkTable]  # halo-free slabs + zero rows, on x_loc
     dep: Optional[fk.EdgeWorkTable]  # halo-dependent slabs + hub, on the table
     out_rows: int  # n_loc + the hub's virtual rows
-    inv_deg: torch.Tensor  # [n_loc] f32 1 / (deg + 1)
+    inv_deg: torch.Tensor  # [n_loc] 1 / (deg + 1), in X's dtype
     send_idx: torch.Tensor  # [P·H] int32 local rows sent, peer by peer
     hot_send: torch.Tensor  # [Hh] int32 local rows of the hot tier
     rows: torch.Tensor  # [n_loc] int32 0..n_loc-1
@@ -127,13 +130,15 @@ class ShardTables:
     hub_owner: Optional[torch.Tensor] = None  # [hub rows] int64, - hub_start
 
     @staticmethod
-    def build(lay: VertexShardLayout, p: int, device) -> "ShardTables":
-        """Shard p's tables.  The free table writes the free slabs' rows of
-        the update and zeroes the rows no slab writes (the hub's owner
-        rows and the padding); the dep table writes the dep slabs' rows
-        and the hub's virtual rows, past ``n_loc``.  Both are checked once
-        (``edge_work_table``): x_loc's rows for every slab row, and the
-        gather table's rows for every real neighbour slot."""
+    def build(lay: VertexShardLayout, p: int, device,
+              dtype: torch.dtype = torch.float32) -> "ShardTables":
+        """Shard p's tables, ``inv_deg`` in X's ``dtype``.  The free table
+        writes the free slabs' rows of the update and zeroes the rows no
+        slab writes (the hub's owner rows and the padding); the dep table
+        writes the dep slabs' rows and the hub's virtual rows, past
+        ``n_loc``.  Both are checked once (``edge_work_table``): x_loc's
+        rows for every slab row, and the gather table's rows for every
+        real neighbour slot."""
         dev = torch.device(device)
         P, n_loc = lay.n_shards, lay.n_loc
         T = n_loc + P * lay.hot_width + P * lay.halo_width
@@ -180,7 +185,7 @@ class ShardTables:
             n_loc=n_loc, table_rows=T, free=table(free, n_loc),
             dep=table(dep, T), out_rows=out_rows,
             inv_deg=t(1.0 / (lay.deg_loc[p].astype(np.float64) + 1.0),
-                      torch.float32),
+                      dtype),
             send_idx=t(lay.send_idx[p].reshape(-1)),
             hot_send=t(lay.hot_send[p]),
             rows=torch.arange(n_loc, dtype=torch.int32, device=dev),
@@ -218,7 +223,7 @@ def shard_free_part(model: ForceModel, t: ShardTables, x, pool_rows, step,
     the zero rows into a new ``[out_rows, D]`` update, and the
     repulsion.  Returns ``(upd, rep)``.  ``plain``: the plain PyTorch
     versions of the kernels, on x's device."""
-    upd = torch.empty((t.out_rows, x.shape[1]), dtype=torch.float32,
+    upd = torch.empty((t.out_rows, x.shape[1]), dtype=x.dtype,
                       device=x.device)
     if t.free is not None:
         if plain:
@@ -246,7 +251,7 @@ def shard_dep_part(model: ForceModel, t: ShardTables, x, xtab, upd, rep,
                                     out=upd)
     loc = upd[: t.n_loc]
     if t.hub_owner is not None:
-        loc[t.hub_start:].index_add_(0, t.hub_owner, upd[t.n_loc:])
+        add_rows(loc[t.hub_start:], t.hub_owner, upd[t.n_loc:])
     return loc.add_(rep)
 
 
@@ -288,6 +293,9 @@ class VertexShardedForce2Vec:
         self.graph = graph
         self.config = config
         self.device = dev = torch.device(device)
+        self._dtype = getattr(torch, config.dtype)
+        # the kernels (and their plain versions) hold X in f32 or bf16
+        fk.check_x_dtype(self._dtype)
         self.model = get_model(config.model, sm_table=config.sm_table)
         if self.model.repulsion == "all":
             raise ValueError("tdist_exact runs the batch trainer, not "
@@ -316,7 +324,7 @@ class VertexShardedForce2Vec:
             graph, self.P, min_width=min_width, hub_width=hub_width,
             row_align=row_align)
         p, n_loc = self.rank, lay.n_loc
-        self.tables = ShardTables.build(lay, p, dev)
+        self.tables = ShardTables.build(lay, p, dev, self._dtype)
         self._shard_of = torch.as_tensor(lay.shard_of, device=dev)
         self._lrow_of = torch.as_tensor(lay.lrow_of, device=dev)
         own_g = np.flatnonzero(lay.shard_of == p)
@@ -403,8 +411,8 @@ class VertexShardedForce2Vec:
 
     def comm_stats(self) -> dict:
         """Per-iteration communication of one rank (rows are
-        ``[row_width]``-wide f32 embedding rows unless the key says id
-        words, 4 bytes each)."""
+        ``[row_width]``-wide embedding rows of X's dtype unless the key says
+        id words, 4 bytes each)."""
         lay, cfg = self.layout, self.config
         P = lay.n_shards
         rows = {
@@ -427,7 +435,8 @@ class VertexShardedForce2Vec:
         emb_rows = sum(v for k, v in rows.items()
                        if k.endswith(("_rows_sent", "_rows_recv", "_rows")))
         return {**rows,
-                "bytes_per_iter_per_shard": emb_rows * self.row_width * 4
+                "bytes_per_iter_per_shard":
+                emb_rows * self.row_width * self._dtype.itemsize
                 + rows.get("rwalk_id_words_sent", 0) * 4,
                 "layout": dict(lay.stats)}
 
@@ -442,7 +451,7 @@ class VertexShardedForce2Vec:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         n, dim = self.graph.n, self.config.dim
         x = torch.zeros((self.layout.n_loc, self.row_width),
-                        dtype=torch.float32, device=self.device)
+                        dtype=self._dtype, device=self.device)
         ids, lrows = self._own_ids, self._own_lrows
         for c0 in range(0, n, _INIT_CHUNK):
             c1 = min(n, c0 + _INIT_CHUNK)
@@ -457,12 +466,12 @@ class VertexShardedForce2Vec:
     def pad_embedding(self, x) -> torch.Tensor:
         """Host or device ``[n, dim]`` in original id order → this rank's
         ``[n_loc, row_width]`` rows (padding rows and columns 0)."""
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        x = torch.as_tensor(x, dtype=self._dtype, device=self.device)
         if tuple(x.shape) != (self.graph.n, self.config.dim):
             raise ValueError(f"X {tuple(x.shape)} != "
                              f"{(self.graph.n, self.config.dim)}")
         out = torch.zeros((self.layout.n_loc, self.row_width),
-                          dtype=torch.float32, device=self.device)
+                          dtype=self._dtype, device=self.device)
         out[self._own_lrows, : self.config.dim] = x[self._own_ids]
         return out
 
@@ -744,8 +753,8 @@ class VertexShardedForce2Vec:
             wg = torch.as_tensor(walks, device=dev).to(torch.int32)
             rows = wg[self._gmap_loc.clamp(0, lay.n - 1).long()]
             w = torch.where((self._gmap_loc >= 0)[:, None], rows, -1)
-        return self._iteration(x, pool_g, ch, w,
-                               self.lr if step is None else step)
+        return self._iteration(x, pool_g, ch, w, round_to(
+            self.lr if step is None else step, self._dtype))
 
     def run_span(self, x: torch.Tensor, seed: int, num_iters: int,
                  iter_offset: int = 0) -> torch.Tensor:
@@ -761,7 +770,8 @@ class VertexShardedForce2Vec:
         for it in range(iter_offset, iter_offset + num_iters):
             pool_g, choice, walks = self._draw(seed, it)
             self._iteration(x, pool_g, choice, walks,
-                            step_at(self.model, self.lr, it), state)
+                            step_at(self.model, self.lr, it, self._dtype),
+                            state)
         if state is not None:
             self._wait(state[1])  # the last exchange has no consumer
         return x

@@ -33,26 +33,28 @@ _F = ctypes.c_float
 # C entry points and their argument types (every pointer and the stream as
 # c_void_p, so ctypes never truncates them to 32 bits)
 _SIGNATURES = {
-    # x, xg, xg_is_bf16, nbr, deg, xi_row, invd, sm_table, step, out,
-    # accumulate, table (host [n_entries, 5] int64), n_entries, dim, model,
-    # stream
-    "f2v_ell_edge_force": (_P, _P, _I, _P, _P, _P, _P, _P, _F, _P, _I, _P,
-                           _I, _I, _I, _P),
-    # xi, sg, sg_is_bf16, sm_table, step, out, rows, group, ns, dim, model,
-    # stream
-    "f2v_grouped_rep_force": (_P, _P, _I, _P, _F, _P, _I, _I, _I, _I, _I,
-                              _P),
-    # x, xg, xg_is_bf16, idx, deg, xi_row, sm_table, step, out, accumulate,
-    # rows, width, dim, model, stream
-    "f2v_ell_sample_force": (_P, _P, _I, _P, _P, _P, _P, _F, _P, _I, _I, _I,
-                             _I, _I, _P),
-    # x, xg, xg_is_bf16, nbr, deg, xi_row, part, table (host [n_entries, 5]
-    # int64), n_entries, dim, dot, stream
-    "f2v_tp_pair_partial": (_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # x, xg, xg_is_bf16, nbr, deg, xi_row, invd, sm_table, a, step, out,
-    # accumulate, table, n_entries, dim, kind, model, stream
-    "f2v_tp_pair_force": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _F, _P, _I, _P,
-                          _I, _I, _I, _I, _P),
+    # x, xg, xg_is_bf16, x_is_bf16 (x, invd and out bf16), nbr, deg,
+    # xi_row, invd, sm_table, step, out, accumulate, table (host
+    # [n_entries, 5] int64), n_entries, dim, model, stream
+    "f2v_ell_edge_force": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _F, _P, _I,
+                           _P, _I, _I, _I, _P),
+    # xi, sg, sg_is_bf16, xi_is_bf16 (xi and out bf16), sm_table, step, out,
+    # rows, group, ns, dim, model, stream
+    "f2v_grouped_rep_force": (_P, _P, _I, _I, _P, _F, _P, _I, _I, _I, _I,
+                              _I, _P),
+    # x, xg, xg_is_bf16, x_is_bf16 (x and out bf16), idx, deg, xi_row,
+    # sm_table, step, out, accumulate, rows, width, dim, model, stream
+    "f2v_ell_sample_force": (_P, _P, _I, _I, _P, _P, _P, _P, _F, _P, _I, _I,
+                             _I, _I, _I, _P),
+    # x, xg, xg_is_bf16, x_is_bf16, nbr, deg, xi_row, part, table (host
+    # [n_entries, 5] int64), n_entries, dim, dot, stream
+    "f2v_tp_pair_partial": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _P),
+    # x, xg, xg_is_bf16, x_is_bf16 (x, invd and out bf16), nbr, deg, xi_row,
+    # invd, sm_table, a, step, out, accumulate, table, n_entries, dim, kind,
+    # model, stream
+    "f2v_tp_pair_force": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _F, _P, _I,
+                          _P, _I, _I, _I, _I, _P),
     # the benchmark probes (probe_kernels.py)
     # tbl, tbl_is_bf16, idx, out, rows, k, dim, stages, stream
     "f2v_take_sum": (_P, _I, _P, _P, _I, _I, _I, _I, _P),

@@ -12,12 +12,20 @@
 // classes and the host picks the narrowest that holds the row
 // (with_row_class).  Row bases must be 16-byte aligned (the Python wrappers
 // check it).
+//
+// X (the rows x_i are read from, with invd) and a force's output are in
+// X's element type, f32 or bf16 (XElem<kXBf16>; a bf16 X gathers from
+// itself, so only bf16 gathers pair with it).  Every sum and force stays
+// in f32; a bf16 output is rounded once, at the store (the JAX package's
+// MXU kernel: f32 accumulation, cast to xi.dtype).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace f2v {
 
@@ -32,6 +40,20 @@ constexpr int kRowAlign = 8;  // D is a multiple of it (force_kernels.ROW_ALIGN)
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+
+// X's element type: bf16 for the kXBf16 instances, else f32.
+template <bool kXBf16>
+using XElem = std::conditional_t<kXBf16, __nv_bfloat16, float>;
+
+// v rounded to T (round to nearest even), as f32.
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  if constexpr (std::is_same_v<T, float>) {
+    return v;
+  } else {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  }
 }
 
 __host__ __device__ constexpr int pack_align(int bytes) {
@@ -61,21 +83,36 @@ __device__ __forceinline__ void store_row(float* __restrict__ p,
   *reinterpret_cast<Pack<float, V>*>(p) = pk;
 }
 
-// Store v at p, or with `accumulate` store p + v: one rounded f32 add per
-// element, the add a separate `out.add_(v)` would make.
-template <int V>
-__device__ __forceinline__ void store_or_add(float* __restrict__ p,
+// Store V f32 values at p in X's type TX, each rounded once.
+template <typename TX, int V>
+__device__ __forceinline__ void store_x(TX* __restrict__ p,
+                                        const float (&v)[V]) {
+  if constexpr (std::is_same_v<TX, float>) {
+    store_row<V>(p, v);
+  } else {
+    Pack<TX, V> pk;
+#pragma unroll
+    for (int i = 0; i < V; ++i) pk.v[i] = __float2bfloat16_rn(v[i]);
+    *reinterpret_cast<Pack<TX, V>*>(p) = pk;
+  }
+}
+
+// Store v at p in TX, or with `accumulate` store p + v: v rounded to TX
+// (the value a store would write), added to p's value in f32 and rounded
+// once more, the add a separate `out.add_(v)` of the stored v would make.
+template <typename TX, int V>
+__device__ __forceinline__ void store_or_add(TX* __restrict__ p,
                                              const float (&v)[V],
                                              bool accumulate) {
   if (!accumulate) {
-    store_row<V>(p, v);
+    store_x<TX, V>(p, v);
     return;
   }
   float s[V];
-  load_row<float, V>(p, s);
+  load_row<TX, V>(p, s);
 #pragma unroll
-  for (int i = 0; i < V; ++i) s[i] = __fadd_rn(s[i], v[i]);
-  store_row<V>(p, s);
+  for (int i = 0; i < V; ++i) s[i] = __fadd_rn(s[i], round_to<TX>(v[i]));
+  store_x<TX, V>(p, s);
 }
 
 // Butterfly sum over aligned groups of G lanes: every lane of a group ends
@@ -291,10 +328,11 @@ __device__ __forceinline__ float pair_part(const float (&xi)[V],
 // `width` id slots per row.  Row r of an entry computes
 //   out[out_begin + r] = sum_{k < deg[row_begin + r]} force(x[i], xg[j_k])
 //   with i = xi_row[row_begin + r], j_k = nbr[nbr_begin + r * width + k],
-// x_i in f32 and the neighbour rows from the (bf16 or f32) gather replica
-// xg.  One launch covers the whole table: each entry owns a run of
-// consecutive blocks, in table order, so the caller's order (widest first)
-// is the order in which rows start.
+// x_i from X (f32 or bf16, read as f32) and the neighbour rows from the
+// (bf16 or f32) gather replica xg, which is X itself when X is bf16.  One
+// launch covers the whole table: each entry owns a run of consecutive
+// blocks, in table order, so the caller's order (widest first) is the
+// order in which rows start.
 //
 // A group of G lanes owns a row (RowClass): at dim 128, two rows per warp
 // with a bf16 replica, whose rows are 16 lanes of 16-byte loads, so that
@@ -341,16 +379,18 @@ struct EllEntry {
   int block_begin;  // first block of the launch
 };
 
-template <typename T>
+// T: the gather table's element type; TX: X's (x, invd and out), float or
+// bf16, bf16 only with a bf16 T.
+template <typename T, typename TX>
 struct EllArgs {
-  const float* x;         // [n_pad, dim]
+  const TX* x;            // [n_pad, dim]
   const T* xg;            // [n_pad, dim] gather replica
   const int32_t* nbr;     // every entry's [rows, width] ids, flat
   const int32_t* deg;     // [rows] valid slots per row
   const int32_t* xi_row;  // [rows] table row whose x (and invd) a row uses
-  const float* invd;      // [n_pad] 1 / (deg + 1); read only by sigmoid
+  const TX* invd;         // [n_pad] 1 / (deg + 1); read only by sigmoid
   const float* sm_table;  // [2048] sigmoid table; read only by table models
-  float* out;             // [out rows, dim]
+  TX* out;                // [out rows, dim]
   const float* a;         // [slots] pair scalars, read by kLoad
   float* part;            // [slots] pair scalars, written by kStore
   float step;
@@ -363,8 +403,8 @@ struct EllArgs {
 // Fill p's entries from the host's [n, 5] int64 table (row_begin,
 // nbr_begin, out_begin, rows, width), for row class RC.  Returns the number
 // of blocks the launch needs, or -1 for a malformed table.
-template <class RC, typename T>
-inline int64_t ell_plan(EllArgs<T>& p, const int64_t* table, int n) {
+template <class RC, class A>
+inline int64_t ell_plan(A& p, const int64_t* table, int n) {
   if (n < 1 || n > kMaxEntries) return -1;
   constexpr int64_t kRowsPerBlock = kEllWarps * (32 / RC::G);
   int64_t blocks = 0;
@@ -406,8 +446,8 @@ __device__ __forceinline__ float piece_f32(const uint4& q, int v) {
 // The body of the ELL kernels: this block's entry, one row of RC::D
 // (kFull) or p.dim elements per group of RC::G lanes, each pair's scalar
 // as Mode says.
-template <typename T, class RC, class F, int Mode = kCompute>
-__device__ __forceinline__ void ell_block(const EllArgs<T>& p) {
+template <typename T, typename TX, class RC, class F, int Mode = kCompute>
+__device__ __forceinline__ void ell_block(const EllArgs<T, TX>& p) {
   constexpr int G = RC::G, P = RC::P, E = RC::E;
   constexpr int U = RC::U;
   constexpr bool kStores = Mode == kStore;
@@ -433,13 +473,13 @@ __device__ __forceinline__ void ell_block(const EllArgs<T>& p) {
 #pragma unroll
   for (int c = 0; c < P; ++c) {
     if (live && has[c]) {
-      load_row<float, E>(p.x + i * dim + (c * G + gl) * E, xi[c]);
+      load_row<TX, E>(p.x + i * dim + (c * G + gl) * E, xi[c]);
     } else {
 #pragma unroll
       for (int v = 0; v < E; ++v) xi[c][v] = 0.0f;
     }
   }
-  if (F::kUsesInvd && live) invd_i = p.invd[i];
+  if (F::kUsesInvd && live) invd_i = to_f32(p.invd[i]);
   const int64_t s0 = e.nbr_begin + int64_t(r) * e.width;  // the row's slots
   const int32_t* ids = p.nbr + s0;
   int n_max = n;  // the warp's loops run to its longest row
@@ -530,10 +570,12 @@ __device__ __forceinline__ void ell_block(const EllArgs<T>& p) {
     if (kStores && live && i0 + gl < e.width) p.part[s0 + i0 + gl] = my_a;
   }
   if (!kStores && live) {
-    float* o = p.out + (e.out_begin + r) * dim;
+    TX* o = p.out + (e.out_begin + r) * dim;
 #pragma unroll
     for (int c = 0; c < P; ++c) {
-      if (has[c]) store_or_add<E>(o + (c * G + gl) * E, acc[c], p.accumulate);
+      if (has[c]) {
+        store_or_add<TX, E>(o + (c * G + gl) * E, acc[c], p.accumulate);
+      }
     }
   }
 }

@@ -4,8 +4,10 @@
 // `take` that fed it).  For each bucket row r, with i = xi_row[r]:
 //   out[r] = sum_{k < deg[r]} coeff(a_rk, invd[i], step) * vec_rk
 // where a is |x_i - xg_j|^2 (dist2) or x_i . xg_j (dot), vec is x_i - xg_j,
-// xg_j - x_i or xg_j, and j = nbr[r, k].  x_i stays f32; only the
-// neighbour rows come from the (bf16 or f32) gather replica xg.  Rows are
+// xg_j - x_i or xg_j, and j = nbr[r, k].  x_i and out are in X's type
+// (f32, or bf16 with X itself as the bf16 gather table: the kXBf16
+// instances); the neighbour rows come from the (bf16 or f32) gather
+// replica xg; the sums are f32, rounded once at the store.  Rows are
 // any multiple of 8 wide up to kMaxDim, one instance per row class
 // (common.cuh::with_row_class; dims 64 and 128 fill theirs and run with D
 // fixed at compile time); the sigmoid coefficient comes exact or from the
@@ -42,16 +44,17 @@
 namespace f2v {
 namespace {
 
-template <typename T, int G, int P, bool kFull, int M>
+template <typename T, bool kXBf16, int G, int P, bool kFull, int M>
 __global__ void __launch_bounds__(kEllThreads,
                                   RowClass<T, G, P, kFull>::kMinBlocks)
-    ell_edge_force_kernel(const __grid_constant__ EllArgs<T> p) {
-  ell_block<T, RowClass<T, G, P, kFull>, EdgeForce<M>>(p);
+    ell_edge_force_kernel(
+        const __grid_constant__ EllArgs<T, XElem<kXBf16>> p) {
+  ell_block<T, XElem<kXBf16>, RowClass<T, G, P, kFull>, EdgeForce<M>>(p);
 }
 
-template <typename T, int G, int P, bool kFull>
-cudaError_t launch(EllArgs<T>& p, const int64_t* table, int n_entries,
-                   int model, cudaStream_t s) {
+template <typename T, bool kXBf16, int G, int P, bool kFull>
+cudaError_t launch(EllArgs<T, XElem<kXBf16>>& p, const int64_t* table,
+                   int n_entries, int model, cudaStream_t s) {
   const int64_t blocks =
       ell_plan<RowClass<T, G, P, kFull>>(p, table, n_entries);
   if (blocks < 0) return cudaErrorInvalidValue;
@@ -63,44 +66,46 @@ cudaError_t launch(EllArgs<T>& p, const int64_t* table, int n_entries,
   };
   switch (model) {
     case kTdist:
-      return go(ell_edge_force_kernel<T, G, P, kFull, kTdist>);
+      return go(ell_edge_force_kernel<T, kXBf16, G, P, kFull, kTdist>);
     case kSigmoid:
-      return go(ell_edge_force_kernel<T, G, P, kFull, kSigmoid>);
+      return go(ell_edge_force_kernel<T, kXBf16, G, P, kFull, kSigmoid>);
     case kFr:
-      return go(ell_edge_force_kernel<T, G, P, kFull, kFr>);
+      return go(ell_edge_force_kernel<T, kXBf16, G, P, kFull, kFr>);
     case kLinlog:
-      return go(ell_edge_force_kernel<T, G, P, kFull, kLinlog>);
+      return go(ell_edge_force_kernel<T, kXBf16, G, P, kFull, kLinlog>);
     case kForceatlas:
-      return go(ell_edge_force_kernel<T, G, P, kFull, kForceatlas>);
+      return go(ell_edge_force_kernel<T, kXBf16, G, P, kFull, kForceatlas>);
     case kSigmoidTable:
       if (p.sm_table == nullptr) return cudaErrorInvalidValue;
-      return go(ell_edge_force_kernel<T, G, P, kFull, kSigmoidTable>);
+      return go(ell_edge_force_kernel<T, kXBf16, G, P, kFull, kSigmoidTable>);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
+template <typename T, bool kXBf16>
 cudaError_t launch(const void* x, const void* xg, const void* nbr,
                    const void* deg, const void* xi_row, const void* invd,
                    const void* sm_table, float step, void* out,
                    int accumulate, const int64_t* table, int n_entries,
                    int dim, int model, cudaStream_t s) {
-  EllArgs<T> p{};
-  p.x = static_cast<const float*>(x);
+  using TX = XElem<kXBf16>;
+  EllArgs<T, TX> p{};
+  p.x = static_cast<const TX*>(x);
   p.xg = static_cast<const T*>(xg);
   p.nbr = static_cast<const int32_t*>(nbr);
   p.deg = static_cast<const int32_t*>(deg);
   p.xi_row = static_cast<const int32_t*>(xi_row);
-  p.invd = static_cast<const float*>(invd);
+  p.invd = static_cast<const TX*>(invd);
   p.sm_table = static_cast<const float*>(sm_table);
-  p.out = static_cast<float*>(out);
+  p.out = static_cast<TX*>(out);
   p.step = step;
   p.dim = dim;
   p.accumulate = accumulate != 0;
   return with_row_class<T>(dim, [&](auto rc) {
     using RC = decltype(rc);
-    return launch<T, RC::G, RC::P, RC::kFull>(p, table, n_entries, model, s);
+    return launch<T, kXBf16, RC::G, RC::P, RC::kFull>(p, table, n_entries,
+                                                      model, s);
   });
 }
 
@@ -110,23 +115,32 @@ cudaError_t launch(const void* x, const void* xg, const void* nbr,
 // table: [n_entries, 5] int64 in host memory (row_begin, nbr_begin,
 // out_begin, rows, width), in launch order.  sm_table: the device's
 // [2048] f32 sigmoid table for kSigmoidTable, else unused (may be null).
-// accumulate: add into out's rows instead of storing.
+// accumulate: add into out's rows instead of storing.  x_is_bf16: x,
+// invd and out are bf16 (then xg must be bf16 too), else f32.
 extern "C" int f2v_ell_edge_force(const void* x, const void* xg,
-                                  int xg_is_bf16, const void* nbr,
-                                  const void* deg, const void* xi_row,
-                                  const void* invd, const void* sm_table,
-                                  float step, void* out, int accumulate,
+                                  int xg_is_bf16, int x_is_bf16,
+                                  const void* nbr, const void* deg,
+                                  const void* xi_row, const void* invd,
+                                  const void* sm_table, float step,
+                                  void* out, int accumulate,
                                   const void* table, int n_entries, int dim,
                                   int model, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t* t = static_cast<const int64_t*>(table);
+  if (x_is_bf16) {
+    if (!xg_is_bf16) return cudaErrorInvalidValue;
+    return f2v::launch<__nv_bfloat16, true>(x, xg, nbr, deg, xi_row, invd,
+                                            sm_table, step, out, accumulate,
+                                            t, n_entries, dim, model, s);
+  }
   return xg_is_bf16
-             ? f2v::launch<__nv_bfloat16>(x, xg, nbr, deg, xi_row, invd,
-                                          sm_table, step, out, accumulate, t,
-                                          n_entries, dim, model, s)
-             : f2v::launch<float>(x, xg, nbr, deg, xi_row, invd, sm_table,
-                                  step, out, accumulate, t, n_entries, dim,
-                                  model, s);
+             ? f2v::launch<__nv_bfloat16, false>(x, xg, nbr, deg, xi_row,
+                                                 invd, sm_table, step, out,
+                                                 accumulate, t, n_entries,
+                                                 dim, model, s)
+             : f2v::launch<float, false>(x, xg, nbr, deg, xi_row, invd,
+                                         sm_table, step, out, accumulate, t,
+                                         n_entries, dim, model, s);
 }
 
 extern "C" const char* f2v_error_string(int err) {

@@ -8,10 +8,12 @@
 //   out[r] = sum_{k < deg[r]} sample_force(x_i, xg[idx[r, k]], step)
 // or, with `accumulate`, out[r] += that sum: one f32 add per element, the
 // add that `out.add_(sum)` would make, without the [C, D] temporary.  x_i
-// stays f32; only the sample rows come from the (bf16 or f32) gather
-// replica.  Rows are any multiple of 8 wide up to kMaxDim, one instance
-// per row class (common.cuh::with_row_class); the sigmoid comes exact or
-// from the reference's lookup table (kSigmoidTableRep).  The per-vertex
+// and out are in X's type (f32, or bf16 with X itself as the bf16 gather
+// table: the kXBf16 instances; a bf16 sum is rounded once before it is
+// added); the sample rows come from the (bf16 or f32) gather replica.  Rows
+// are any multiple of 8 wide up to kMaxDim, one instance per row class
+// (common.cuh::with_row_class); the sigmoid comes exact or from the
+// reference's lookup table (kSigmoidTableRep).  The per-vertex
 // (-bs 1) repulsion launches it once over every table row, with idx the
 // [n_pad, ns] negatives, deg = ns, accumulating into the iteration's
 // update.
@@ -35,17 +37,18 @@
 namespace f2v {
 namespace {
 
-template <typename T, int G, int P, bool kFull, int M>
+template <typename T, bool kXBf16, int G, int P, bool kFull, int M>
 __global__ void __launch_bounds__(kEllThreads,
                                   RowClass<T, G, P, kFull>::kMinBlocks)
-    ell_sample_force_kernel(const __grid_constant__ EllArgs<T> p) {
-  ell_block<T, RowClass<T, G, P, kFull>, SampleForce<M>>(p);
+    ell_sample_force_kernel(
+        const __grid_constant__ EllArgs<T, XElem<kXBf16>> p) {
+  ell_block<T, XElem<kXBf16>, RowClass<T, G, P, kFull>, SampleForce<M>>(p);
 }
 
-template <typename T, int G, int P, bool kFull>
-cudaError_t launch(const EllArgs<T>& args, int rows, int width, int model,
-                   cudaStream_t s) {
-  EllArgs<T> p = args;
+template <typename T, bool kXBf16, int G, int P, bool kFull>
+cudaError_t launch(const EllArgs<T, XElem<kXBf16>>& args, int rows,
+                   int width, int model, cudaStream_t s) {
+  EllArgs<T, XElem<kXBf16>> p = args;
   const int64_t table[5] = {0, 0, 0, rows, width};
   const int64_t blocks = ell_plan<RowClass<T, G, P, kFull>>(p, table, 1);
   if (blocks < 0) return cudaErrorInvalidValue;
@@ -57,39 +60,42 @@ cudaError_t launch(const EllArgs<T>& args, int rows, int width, int model,
   };
   switch (model) {
     case kTdistRep:
-      return go(ell_sample_force_kernel<T, G, P, kFull, kTdistRep>);
+      return go(ell_sample_force_kernel<T, kXBf16, G, P, kFull, kTdistRep>);
     case kSigmoidRep:
-      return go(ell_sample_force_kernel<T, G, P, kFull, kSigmoidRep>);
+      return go(ell_sample_force_kernel<T, kXBf16, G, P, kFull, kSigmoidRep>);
     case kLayoutRep:
-      return go(ell_sample_force_kernel<T, G, P, kFull, kLayoutRep>);
+      return go(ell_sample_force_kernel<T, kXBf16, G, P, kFull, kLayoutRep>);
     case kSigmoidTableRep:
       if (p.sm_table == nullptr) return cudaErrorInvalidValue;
-      return go(ell_sample_force_kernel<T, G, P, kFull, kSigmoidTableRep>);
+      return go(
+          ell_sample_force_kernel<T, kXBf16, G, P, kFull, kSigmoidTableRep>);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
+template <typename T, bool kXBf16>
 cudaError_t launch(const void* x, const void* xg, const void* idx,
                    const void* deg, const void* xi_row, const void* sm_table,
                    float step, void* out, int accumulate, int rows, int width,
                    int dim, int model, cudaStream_t s) {
-  EllArgs<T> p{};
-  p.x = static_cast<const float*>(x);
+  using TX = XElem<kXBf16>;
+  EllArgs<T, TX> p{};
+  p.x = static_cast<const TX*>(x);
   p.xg = static_cast<const T*>(xg);
   p.nbr = static_cast<const int32_t*>(idx);
   p.deg = static_cast<const int32_t*>(deg);
   p.xi_row = static_cast<const int32_t*>(xi_row);
   p.invd = nullptr;
   p.sm_table = static_cast<const float*>(sm_table);
-  p.out = static_cast<float*>(out);
+  p.out = static_cast<TX*>(out);
   p.step = step;
   p.dim = dim;
   p.accumulate = accumulate != 0;
   return with_row_class<T>(dim, [&](auto rc) {
     using RC = decltype(rc);
-    return launch<T, RC::G, RC::P, RC::kFull>(p, rows, width, model, s);
+    return launch<T, kXBf16, RC::G, RC::P, RC::kFull>(p, rows, width, model,
+                                                      s);
   });
 }
 
@@ -97,20 +103,28 @@ cudaError_t launch(const void* x, const void* xg, const void* idx,
 }  // namespace f2v
 
 // sm_table: the device's [2048] f32 sigmoid table for kSigmoidTableRep,
-// else unused (may be null).
+// else unused (may be null).  x_is_bf16: x and out are bf16 (then xg
+// must be bf16 too), else f32.
 extern "C" int f2v_ell_sample_force(const void* x, const void* xg,
-                                    int xg_is_bf16, const void* idx,
-                                    const void* deg, const void* xi_row,
-                                    const void* sm_table, float step,
-                                    void* out, int accumulate, int rows,
-                                    int width, int dim, int model,
+                                    int xg_is_bf16, int x_is_bf16,
+                                    const void* idx, const void* deg,
+                                    const void* xi_row, const void* sm_table,
+                                    float step, void* out, int accumulate,
+                                    int rows, int width, int dim, int model,
                                     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_is_bf16) {
+    if (!xg_is_bf16) return cudaErrorInvalidValue;
+    return f2v::launch<__nv_bfloat16, true>(x, xg, idx, deg, xi_row,
+                                            sm_table, step, out, accumulate,
+                                            rows, width, dim, model, s);
+  }
   return xg_is_bf16
-             ? f2v::launch<__nv_bfloat16>(x, xg, idx, deg, xi_row, sm_table,
-                                          step, out, accumulate, rows, width,
-                                          dim, model, s)
-             : f2v::launch<float>(x, xg, idx, deg, xi_row, sm_table, step,
-                                  out, accumulate, rows, width, dim, model,
-                                  s);
+             ? f2v::launch<__nv_bfloat16, false>(x, xg, idx, deg, xi_row,
+                                                 sm_table, step, out,
+                                                 accumulate, rows, width, dim,
+                                                 model, s)
+             : f2v::launch<float, false>(x, xg, idx, deg, xi_row, sm_table,
+                                         step, out, accumulate, rows, width,
+                                         dim, model, s);
 }

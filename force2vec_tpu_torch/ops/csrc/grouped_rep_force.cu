@@ -4,12 +4,15 @@
 // belongs to group r / group, and every row of a group repels from the
 // same ns sample rows:
 //   out[r] = sum_{s < ns} sample_force(xi[r], sg[r / group, s], step)
-// xi stays f32; the samples come from the (bf16 or f32) gather replica.
-// Rows are any multiple of 8 wide up to kMaxDim; the sigmoid comes exact or
-// from the reference's lookup table (kSigmoidTableRep).
+// xi and out are in X's type (f32, or bf16 with the samples gathered from
+// X itself: the kXBf16 instances; the sums are f32, rounded once at the
+// store); the samples come from the (bf16 or f32) gather replica.  Rows
+// are any multiple of 8 wide up to kMaxDim; the sigmoid comes exact or from
+// the reference's lookup table (kSigmoidTableRep).
 //
 // What bounds it: streaming xi in and out, 2 x 64 MB of f32 per iteration
-// at the bench shape (131,072 x 128); the samples are 640 KB of bf16.
+// at the bench shape (131,072 x 128), 2 x 32 MB with X in bf16; the
+// samples are 640 KB of bf16.
 //
 // Design, the TPU kernel's own idea: the [rows, ns, D] expand of the group
 // samples never touches device memory.  A block owns up to 4 rounds of
@@ -17,11 +20,13 @@
 // as f32 once (2.5 KB at ns 5, dim 128), and each group of lanes computes
 // whole rows from it: the f32 row classes of common.cuh (RowClass<float>:
 // one row a warp, a 16-byte piece a lane, at dim 128; two rows a warp at
-// dim 64; a warp with 8 pieces a lane at dim 1024).  Samples past
+// dim 64; a warp with 8 pieces a lane at dim 1024), whatever X's type (a
+// bf16 X reads and writes 8 bytes of each piece's 4 elements).  Samples past
 // kMaxSampleBytes of shared memory (ns > 12 at dim 1024) go in chunks, a
 // launch each, the later ones adding into what the last stored, so every
-// ns fits and the sum runs over s in order either way.  Nothing carries
-// across blocks.
+// ns fits and the sum runs over s in order either way (with a bf16 X each
+// later chunk adds into the rounded sum before it).  Nothing carries across
+// blocks.
 
 #include "common.cuh"
 
@@ -34,11 +39,11 @@ constexpr int kRounds = 4;  // rounds of rows a block (32 rows at a row a warp)
 constexpr int kMaxSampleBytes = 48 * 1024;
 
 struct RepArgs {
-  const float* xi;        // [rows, dim]
+  const void* xi;         // [rows, dim], X's type (kXBf16: bf16, else f32)
   const void* sg;         // [ng, ns, dim], bf16 or f32
   const float* sm_table;  // [2048] sigmoid table; read only by table models
   float step;
-  float* out;             // [rows, dim]
+  void* out;              // [rows, dim], X's type
   int rows;
   int group;
   int ns;
@@ -70,13 +75,16 @@ __device__ __forceinline__ void fill_samples(const RepArgs& p, float* samples,
 // in shared memory: each warp's rows start together, so that all its lanes
 // take part in every group sum (a lane past the last row computes on
 // zeros).  ``add``: add into the rows an earlier chunk of samples stored.
-template <int G, int P, bool kFull, int M>
+template <bool kXBf16, int G, int P, bool kFull, int M>
 __device__ __forceinline__ void rep_rows(const RepArgs& p,
                                          const float* samples,
                                          int warp_first, int hi,
                                          int cn, bool add) {
   using RC = RowClass<float, G, P, kFull>;
   using F = SampleForce<M>;
+  using TX = XElem<kXBf16>;
+  const TX* xs = static_cast<const TX*>(p.xi);
+  TX* out = static_cast<TX*>(p.out);
   constexpr int E = RC::E;  // f32 elements a 16-byte piece
   constexpr int kRowsPerRound = kWarpsPerBlock * (32 / G);
   const int64_t dim = kFull ? RC::D : p.dim;
@@ -93,9 +101,9 @@ __device__ __forceinline__ void rep_rows(const RepArgs& p,
     for (int c = 0; c < P; ++c) {
       const int64_t off = int64_t(r) * dim + (c * G + gl) * E;
       if (live && (kFull || c * G < mine)) {
-        load_row<float, E>(p.xi + off, xi[c]);
+        load_row<TX, E>(xs + off, xi[c]);
         if (add) {
-          load_row<float, E>(p.out + off, acc[c]);
+          load_row<TX, E>(out + off, acc[c]);
         } else {
 #pragma unroll
           for (int v = 0; v < E; ++v) acc[c][v] = 0.0f;
@@ -148,7 +156,7 @@ __device__ __forceinline__ void rep_rows(const RepArgs& p,
 #pragma unroll
     for (int c = 0; c < P; ++c) {
       if (live && (kFull || c * G < mine)) {
-        store_row<E>(p.out + int64_t(r) * dim + (c * G + gl) * E, acc[c]);
+        store_x<TX, E>(out + int64_t(r) * dim + (c * G + gl) * E, acc[c]);
       }
     }
   }
@@ -164,7 +172,7 @@ constexpr int kRepMinBlocks(int pieces) {
   return pieces == 1 && (M == kTdistRep || M == kLayoutRep) ? 8 : 1;
 }
 
-template <int G, int P, bool kFull, int M>
+template <bool kXBf16, int G, int P, bool kFull, int M>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, kRepMinBlocks<M>(P))
     grouped_rep_force_kernel(const RepArgs p) {
   constexpr int kRowsPerBlock = kRounds * kWarpsPerBlock * (32 / G);
@@ -184,13 +192,14 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32, kRepMinBlocks<M>(P))
   const int warp_first = int(lo) + (threadIdx.x >> 5) * (32 / G);
   fill_samples(p, samples, g, p.c0, p.cn);
   __syncthreads();
-  rep_rows<G, P, kFull, M>(p, samples, warp_first, hi, p.cn, p.add != 0);
+  rep_rows<kXBf16, G, P, kFull, M>(p, samples, warp_first, hi, p.cn,
+                                   p.add != 0);
 }
 
 // One launch, or with more samples than kMaxSampleBytes of shared memory
 // holds one launch a chunk of them, each later one adding into the rows the
 // last stored (the sum still runs over the samples in order).
-template <int G, int P, bool kFull>
+template <bool kXBf16, int G, int P, bool kFull>
 cudaError_t launch(int model, RepArgs p, int groups, cudaStream_t s) {
   constexpr int kRowsPerBlock = kRounds * kWarpsPerBlock * (32 / G);
   p.tiles_per_group = (p.group + kRowsPerBlock - 1) / kRowsPerBlock;
@@ -199,17 +208,17 @@ cudaError_t launch(int model, RepArgs p, int groups, cudaStream_t s) {
   void (*kernel)(RepArgs) = nullptr;
   switch (model) {
     case kTdistRep:
-      kernel = grouped_rep_force_kernel<G, P, kFull, kTdistRep>;
+      kernel = grouped_rep_force_kernel<kXBf16, G, P, kFull, kTdistRep>;
       break;
     case kSigmoidRep:
-      kernel = grouped_rep_force_kernel<G, P, kFull, kSigmoidRep>;
+      kernel = grouped_rep_force_kernel<kXBf16, G, P, kFull, kSigmoidRep>;
       break;
     case kLayoutRep:
-      kernel = grouped_rep_force_kernel<G, P, kFull, kLayoutRep>;
+      kernel = grouped_rep_force_kernel<kXBf16, G, P, kFull, kLayoutRep>;
       break;
     case kSigmoidTableRep:
       if (p.sm_table == nullptr) return cudaErrorInvalidValue;
-      kernel = grouped_rep_force_kernel<G, P, kFull, kSigmoidTableRep>;
+      kernel = grouped_rep_force_kernel<kXBf16, G, P, kFull, kSigmoidTableRep>;
       break;
     default:
       return cudaErrorInvalidValue;
@@ -233,21 +242,23 @@ cudaError_t launch(int model, RepArgs p, int groups, cudaStream_t s) {
 }  // namespace f2v
 
 // sm_table: the device's [2048] f32 sigmoid table for kSigmoidTableRep,
-// else unused (may be null).
+// else unused (may be null).  xi_is_bf16: xi and out are bf16 (then sg
+// must be bf16 too), else f32.
 extern "C" int f2v_grouped_rep_force(const void* xi, const void* sg,
-                                     int sg_is_bf16, const void* sm_table,
-                                     float step, void* out, int rows,
-                                     int group, int ns, int dim, int model,
-                                     void* stream) {
+                                     int sg_is_bf16, int xi_is_bf16,
+                                     const void* sm_table, float step,
+                                     void* out, int rows, int group, int ns,
+                                     int dim, int model, void* stream) {
   if (rows <= 0) return cudaSuccess;
-  if (group <= 0 || ns <= 0 || dim < f2v::kRowAlign || dim > f2v::kMaxDim) {
+  if (group <= 0 || ns <= 0 || dim < f2v::kRowAlign || dim > f2v::kMaxDim ||
+      (xi_is_bf16 && !sg_is_bf16)) {
     return cudaErrorInvalidValue;
   }
-  const f2v::RepArgs p{static_cast<const float*>(xi),
+  const f2v::RepArgs p{xi,
                        sg,
                        static_cast<const float*>(sm_table),
                        step,
-                       static_cast<float*>(out),
+                       out,
                        rows,
                        group,
                        ns,
@@ -262,6 +273,10 @@ extern "C" int f2v_grouped_rep_force(const void* xi, const void* sg,
   // the f32 row classes: the samples and x_i are f32 in the kernel
   return f2v::with_row_class<float>(dim, [&](auto rc) {
     using RC = decltype(rc);
-    return f2v::launch<RC::G, RC::P, RC::kFull>(model, p, groups, s);
+    return xi_is_bf16
+               ? f2v::launch<true, RC::G, RC::P, RC::kFull>(model, p, groups,
+                                                            s)
+               : f2v::launch<false, RC::G, RC::P, RC::kFull>(model, p,
+                                                             groups, s);
   });
 }

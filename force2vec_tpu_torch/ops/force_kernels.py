@@ -37,6 +37,14 @@ leaves 0 (a zero difference, a zero neighbour component).  The plain
 versions take any width.  The sigmoid family comes exact or from
 the lookup table (``models/forces.py::with_table_sigmoid``): each table
 function has its own model id, and its launch gets the device's table.
+
+X, and with it a force's output and ``invd``, is f32 or bf16
+(``X_DTYPES``); a bf16 X gathers from bf16 rows (its replica is X
+itself).  Kernels and plain versions alike compute every term and sum in
+f32 from X's values and round the result to X's dtype once; adding into
+``out`` adds that rounded result (one rounding more, as ``out.add_`` of
+the stored result makes).  The JAX package's MXU kernel rounds the same
+way (f32 accumulation, cast to ``xi.dtype``).
 """
 
 from __future__ import annotations
@@ -78,6 +86,9 @@ _TABLE_MODEL_IDS = {forces._sigmoid_table_coeff, forces._sigmoid_table_rep}
 KERNEL_MAX_DIM = 1024
 ROW_ALIGN = 8
 _GATHER_DTYPES = (torch.bfloat16, torch.float32)
+# X's dtypes the kernels take (csrc: the kXBf16 instances); a bf16 X pairs
+# only with a bf16 gather table
+X_DTYPES = (torch.float32, torch.bfloat16)
 _MAX_ENTRIES = 64  # csrc/common.cuh::kMaxEntries
 # shared memory of f32 samples a grouped_rep_force launch holds
 # (csrc/grouped_rep_force.cu::kMaxSampleBytes): more take a launch a chunk
@@ -114,6 +125,35 @@ def check_kernel_dim(dim: int) -> None:
     _require(1 <= dim <= KERNEL_MAX_DIM,
              f"the CUDA kernels take dims 1 to {KERNEL_MAX_DIM}, got {dim}; "
              "the batch schedule (--schedule batch) trains at any dim")
+
+
+def check_x_dtype(dtype) -> None:
+    """Raise ``ValueError``, naming ``dtype``, unless the kernels take an X
+    of that dtype (``X_DTYPES``)."""
+    _require(dtype in X_DTYPES,
+             f"the CUDA kernels hold X in {X_DTYPES}, not {dtype}")
+
+
+def _check_x(name, x, xg, ndim, xg_ndim):
+    """x in ``X_DTYPES``, xg in ``_GATHER_DTYPES`` on x's device, and a
+    bf16 x only with a bf16 xg."""
+    _check(name, x, X_DTYPES, ndim, x.device)
+    _check("xg" if xg_ndim == 2 else "sg", xg, _GATHER_DTYPES, xg_ndim,
+           x.device)
+    _require(x.dtype == torch.float32 or xg.dtype == torch.bfloat16,
+             f"a {x.dtype} {name} gathers from bf16 rows (X itself), not "
+             f"{xg.dtype}")
+
+
+def _is_bf16(t) -> int:
+    return int(t.dtype == torch.bfloat16)
+
+
+def _store(dst, s, accumulate: bool):
+    """``s`` (f32) rounded to ``dst``'s dtype, written into ``dst`` or
+    with ``accumulate`` added to it (``dst.add_`` of the rounded value)."""
+    s = s.to(dst.dtype)
+    return dst.add_(s) if accumulate else dst.copy_(s)
 
 
 def _check_cuda_operands(dim, *tensors):
@@ -158,28 +198,28 @@ def ell_edge_force_terms(model: ForceModel, x, xg, nbr, deg, xi_row, invd,
     models' reduction over the dim (``tp_pair_force_plain`` passes one that
     returns the scalars reduced over the tp ranks)."""
     rows = xi_row.long()
-    xi = x[rows]
+    xi = x[rows].float()
     xj = xg[nbr.long()].float()  # [C, K, D]
     kw = {} if rsum is None else {"rsum": rsum}
-    return model.edge_force(xi[:, None, :], xj, invd[rows][:, None, None],
-                            step, mask=_slot_mask(nbr, deg), **kw)
+    return model.edge_force(xi[:, None, :], xj,
+                            invd[rows].float()[:, None, None], step,
+                            mask=_slot_mask(nbr, deg), **kw)
 
 
 def ell_edge_force_plain(model: ForceModel, x, xg, nbr, deg, xi_row, invd,
                          step) -> torch.Tensor:
     """out[r] = Σ_{k<deg[r]} edge_force(x[i], xg[nbr[r, k]]), i = xi_row[r]:
-    the gather, the model's edge force in f32 and a masked sum over K."""
+    the gather, the model's edge force in f32 and a masked sum over K,
+    rounded to X's dtype."""
     return ell_edge_force_terms(model, x, xg, nbr, deg, xi_row, invd,
-                                step).sum(dim=1)
+                                step).sum(dim=1).to(x.dtype)
 
 
 def _check_edge_operands(model, x, xg, invd):
     _require(model.edge_coeff in _EDGE_MODEL_IDS,
              f"{model.name} has no separable edge force")
-    dev = x.device
-    _check("x", x, (torch.float32,), 2, dev)
-    _check("xg", xg, _GATHER_DTYPES, 2, dev)
-    _check("invd", invd, (torch.float32,), 1, dev)
+    _check_x("x", x, xg, 2, 2)
+    _check("invd", invd, (x.dtype,), 1, x.device)
     _require(xg.shape[1] == x.shape[1] and xg.shape[0] >= x.shape[0],
              f"xg {tuple(xg.shape)} must hold x's {tuple(x.shape)} rows "
              "first (x's replica, or [x | more rows])")
@@ -188,9 +228,8 @@ def _check_edge_operands(model, x, xg, invd):
 
 def _edge_out(out, rows, x):
     if out is None:
-        out = torch.empty((rows, x.shape[1]), dtype=torch.float32,
-                          device=x.device)
-    _check("out", out, (torch.float32,), 2, x.device)
+        out = torch.empty((rows, x.shape[1]), dtype=x.dtype, device=x.device)
+    _check("out", out, (x.dtype,), 2, x.device)
     _require(out.shape == (rows, x.shape[1]),
              f"out {tuple(out.shape)} != {(rows, x.shape[1])}")
     return out
@@ -207,7 +246,7 @@ def _launch_edge(model, x, xg, nbr, deg, xi_row, invd, step, out,
     lib = _build.load_library()
     with torch.cuda.device(dev):
         err = lib.f2v_ell_edge_force(
-            x.data_ptr(), xg.data_ptr(), int(xg.dtype == torch.bfloat16),
+            x.data_ptr(), xg.data_ptr(), _is_bf16(xg), _is_bf16(x),
             nbr.data_ptr(), deg.data_ptr(), xi_row.data_ptr(),
             invd.data_ptr(), _table_ptr(model.edge_coeff, dev), float(step),
             out.data_ptr(), int(accumulate), table.ctypes.data,
@@ -221,13 +260,13 @@ def ell_edge_force(model: ForceModel, x, xg, nbr, deg, xi_row, invd, step,
                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Masked edge-force sum over one ELL bucket, gathering in the kernel.
 
-    x [n, D] f32; xg [m, D] bf16 or f32, the gather table: x's replica, or
-    x's rows followed by more (a shard's ``[x_loc | hot | halo]``, m ≥ n);
-    nbr [C, K] int32 rows
-    of xg; deg [C] int32 valid slots per row; xi_row [C] int32 row of x
-    (and invd) each bucket row uses (the bucket's own rows, or the owners
-    of hub virtual rows); invd [n] f32; step a float.  Writes into ``out``
-    [C, D] f32 if given; returns it.  The kernel does not bounds-check
+    x [n, D] f32 or bf16; xg [m, D] bf16 or f32 (bf16 with a bf16 x), the
+    gather table: x's replica, or x's rows followed by more (a shard's
+    ``[x_loc | hot | halo]``, m ≥ n); nbr [C, K] int32 rows of xg; deg [C]
+    int32 valid slots per row; xi_row [C] int32 row of x (and invd) each
+    bucket row uses (the bucket's own rows, or the owners of hub virtual
+    rows); invd [n] in x's dtype; step a float.  Writes into ``out`` [C,
+    D] of x's dtype if given; returns it.  The kernel does not bounds-check
     ``nbr`` or ``xi_row`` (``edge_work_table`` checks a table's once).  One
     launch of the table kernel, over a one-entry table.
     """
@@ -359,15 +398,11 @@ def ell_edge_force_table_plain(model: ForceModel, x, xg,
     into them (``out[rows].add_(sum)``)."""
     if out is None:
         _require(not accumulate, "accumulate needs out")
-        out = torch.empty((table.out_rows, x.shape[1]), dtype=torch.float32,
+        out = torch.empty((table.out_rows, x.shape[1]), dtype=x.dtype,
                           device=x.device)
     for nbr, deg, xi_row, ob in table.parts():
         s = ell_edge_force_plain(model, x, xg, nbr, deg, xi_row, invd, step)
-        dst = out[ob: ob + nbr.shape[0]]
-        if accumulate:
-            dst.add_(s)
-        else:
-            dst.copy_(s)
+        _store(out[ob: ob + nbr.shape[0]], s, accumulate)
     return out
 
 
@@ -376,13 +411,14 @@ def ell_edge_force_table(model: ForceModel, x, xg, table: EdgeWorkTable,
                          accumulate: bool = False) -> torch.Tensor:
     """``ell_edge_force`` over every entry of ``table`` in one launch.
 
-    x [table.n_pad, D] f32, xg [table.n_gather, D] bf16 or f32, the gather
-    table (x's replica unless the table was built with ``n_gather``), invd
-    [table.n_pad] f32, step a float.  Writes into ``out`` [table.out_rows,
-    D] f32 if given (every row, or with a ``partial`` table its entries'
-    rows, which then needs ``out``); with ``accumulate`` adds into the
-    entries' rows of ``out`` instead (one f32 add per element, as
-    ``out.add_(sum)`` makes); returns it.
+    x [table.n_pad, D] f32 or bf16, xg [table.n_gather, D] bf16 or f32
+    (bf16 with a bf16 x), the gather table (x's replica unless the table
+    was built with ``n_gather``), invd [table.n_pad] in x's dtype, step a
+    float.  Writes into ``out`` [table.out_rows, D] of x's dtype if given
+    (every row, or with a ``partial`` table its entries' rows, which then
+    needs ``out``); with ``accumulate`` adds into the entries' rows of
+    ``out`` instead (one add per element, as ``out.add_(sum)`` makes);
+    returns it.
     """
     _check_edge_operands(model, x, xg, invd)
     _require(x.shape[0] == table.n_pad,
@@ -411,31 +447,34 @@ def grouped_rep_force_terms(model: ForceModel, group: int, xi, sg,
     """[C, ns, D] sample_force(xi[r], sg[r // group, s]) per sample, in f32."""
     gid = torch.arange(xi.shape[0], device=xi.device) // group
     s = sg[gid].float()  # [C, ns, D]
-    return model.sample_force(xi[:, None, :], s, step)
+    return model.sample_force(xi.float()[:, None, :], s, step)
 
 
 def grouped_rep_force_plain(model: ForceModel, group: int, xi, sg,
                             step) -> torch.Tensor:
     """out[r] = Σ_s sample_force(xi[r], sg[r // group, s]): the group
-    expand, the model's sample force in f32 and a sum over ns."""
-    return grouped_rep_force_terms(model, group, xi, sg, step).sum(dim=1)
+    expand, the model's sample force in f32 and a sum over ns, rounded to
+    xi's dtype."""
+    return grouped_rep_force_terms(model, group, xi, sg,
+                                   step).sum(dim=1).to(xi.dtype)
 
 
 def grouped_rep_force(model: ForceModel, group: int, xi, sg,
                       step) -> torch.Tensor:
     """Grouped-negative repulsion with the group expand kept on chip.
 
-    xi [C, D] f32, row r in group r // group; sg [ng, ns, D] bf16 or f32
-    per-group sample rows, ng ≥ ceil(C / group); step a float.
-    Returns [C, D] f32.  One launch, or one a chunk of samples where ns·D
-    f32 pass ``_MAX_SAMPLE_BYTES`` (ns > 12 at D = 1024).
+    xi [C, D] f32 or bf16, row r in group r // group; sg [ng, ns, D] bf16
+    or f32 (bf16 with a bf16 xi) per-group sample rows, ng ≥ ceil(C /
+    group); step a float.  Returns [C, D] of xi's dtype.  One launch, or
+    one a chunk of samples where ns·D f32 pass ``_MAX_SAMPLE_BYTES`` (ns >
+    12 at D = 1024); each later chunk adds into the rows the last stored,
+    so with a bf16 xi each chunk's sum is rounded once more.
     """
     _require(model.sample_force in _SAMPLE_MODEL_IDS,
              f"{model.name} has no grouped sample force")
     _require(isinstance(group, int) and group > 0, f"bad group {group!r}")
     dev = xi.device
-    _check("xi", xi, (torch.float32,), 2, dev)
-    _check("sg", sg, _GATHER_DTYPES, 3, dev)
+    _check_x("xi", xi, sg, 2, 3)
     c, dim = xi.shape
     ng, ns, sdim = sg.shape
     _require(sdim == dim, f"sg dim {sdim} != xi dim {dim}")
@@ -444,12 +483,12 @@ def grouped_rep_force(model: ForceModel, group: int, xi, sg,
         return grouped_rep_force_plain(model, group, xi, sg, step)
     _require(dev.type == "cuda", f"no kernel for device {dev}")
     _require(ns > 0, "sg holds no samples")
-    out = torch.empty((c, dim), dtype=torch.float32, device=dev)
+    out = torch.empty((c, dim), dtype=xi.dtype, device=dev)
     _check_cuda_operands(dim, xi, sg, out)
     lib = _build.load_library()
     with torch.cuda.device(dev):
         err = lib.f2v_grouped_rep_force(
-            xi.data_ptr(), sg.data_ptr(), int(sg.dtype == torch.bfloat16),
+            xi.data_ptr(), sg.data_ptr(), _is_bf16(sg), _is_bf16(xi),
             _table_ptr(model.sample_force, dev), float(step), out.data_ptr(),
             c, group, ns, dim,
             _SAMPLE_MODEL_IDS[model.sample_force], _stream(dev))
@@ -467,7 +506,7 @@ def ell_sample_force_terms(model: ForceModel, x, xg, idx, deg, xi_row,
     """[C, K, D] sample_force(x[i], xg[idx[r, k]]) per slot, i = xi_row[r],
     in f32 and exactly 0 in the padded slots k ≥ deg[r]; ``rsum`` as
     ``ell_edge_force_terms``'s."""
-    xi = x[xi_row.long()]
+    xi = x[xi_row.long()].float()
     s = xg[idx.long()].float()  # [C, K, D]
     kw = {} if rsum is None else {"rsum": rsum}
     return model.sample_force(xi[:, None, :], s, step,
@@ -478,15 +517,15 @@ def ell_sample_force_plain(model: ForceModel, x, xg, idx, deg, xi_row, step,
                            out: Optional[torch.Tensor] = None,
                            accumulate: bool = False) -> torch.Tensor:
     """Σ_{k<deg[r]} sample_force(x[i], xg[idx[r, k]]), i = xi_row[r]: the
-    gather, the model's sample force in f32 and a masked sum over K.
-    Returns it, or writes it into ``out`` (with ``accumulate``, adds it:
-    ``out.add_(sum)``) and returns ``out``."""
+    gather, the model's sample force in f32 and a masked sum over K,
+    rounded to X's dtype.  Returns it, or writes it into ``out`` (with
+    ``accumulate``, adds it: ``out.add_(sum)``) and returns ``out``."""
     s = ell_sample_force_terms(model, x, xg, idx, deg, xi_row,
                                step).sum(dim=1)
     if out is None:
         _require(not accumulate, "accumulate needs out")
-        return s
-    return out.add_(s) if accumulate else out.copy_(s)
+        return s.to(x.dtype)
+    return _store(out, s, accumulate)
 
 
 def ell_sample_force(model: ForceModel, x, xg, idx, deg, xi_row, step,
@@ -494,12 +533,13 @@ def ell_sample_force(model: ForceModel, x, xg, idx, deg, xi_row, step,
                      accumulate: bool = False) -> torch.Tensor:
     """Masked sample-force sum over per-row samples, gathering in the kernel.
 
-    x [n, D] f32; xg [m, D] bf16 or f32, the table the samples come from:
-    x's replica, or other rows (the vertex schedule's ``[S, D]`` pool);
-    idx [C, K] int32 rows of xg; deg [C] int32 valid samples per row;
-    xi_row [C] int32 row of x each row uses; step a float.  Writes into
-    ``out`` [C, D] f32 if given, or with ``accumulate`` adds into it (one
-    f32 add per element, as ``out.add_(sum)`` makes); returns ``out``.
+    x [n, D] f32 or bf16; xg [m, D] bf16 or f32 (bf16 with a bf16 x), the
+    table the samples come from: x's replica, or other rows (the vertex
+    schedule's ``[S, D]`` pool); idx [C, K] int32 rows of xg; deg [C]
+    int32 valid samples per row; xi_row [C] int32 row of x each row uses;
+    step a float.  Writes into ``out`` [C, D] of x's dtype if given, or
+    with ``accumulate`` adds into it (one add per element, as
+    ``out.add_(sum)`` makes); returns ``out``.
     The kernel does not bounds-check ``idx`` or ``xi_row``: they must index
     rows of ``xg`` and ``x`` (the callers check injected ids where they
     enter, as ``VertexShardedForce2Vec.run_iteration`` does).  On the CPU,
@@ -510,8 +550,7 @@ def ell_sample_force(model: ForceModel, x, xg, idx, deg, xi_row, step,
              f"{model.name} has no sample force kernel")
     _require(out is not None or not accumulate, "accumulate needs out")
     dev = x.device
-    _check("x", x, (torch.float32,), 2, dev)
-    _check("xg", xg, _GATHER_DTYPES, 2, dev)
+    _check_x("x", x, xg, 2, 2)
     _check("idx", idx, (torch.int32,), 2, dev)
     _check("deg", deg, (torch.int32,), 1, dev)
     _check("xi_row", xi_row, (torch.int32,), 1, dev)
@@ -521,8 +560,8 @@ def ell_sample_force(model: ForceModel, x, xg, idx, deg, xi_row, step,
     _require(deg.shape == (c,) and xi_row.shape == (c,),
              "deg and xi_row must have one entry per row of idx")
     if out is None:
-        out = torch.empty((c, dim), dtype=torch.float32, device=dev)
-    _check("out", out, (torch.float32,), 2, dev)
+        out = torch.empty((c, dim), dtype=x.dtype, device=dev)
+    _check("out", out, (x.dtype,), 2, dev)
     _require(out.shape == (c, dim), f"out {tuple(out.shape)} != {(c, dim)}")
     if dev.type == "cpu":
         real = idx[_slot_mask(idx, deg)[:, :, 0]]
@@ -537,7 +576,7 @@ def ell_sample_force(model: ForceModel, x, xg, idx, deg, xi_row, step,
     lib = _build.load_library()
     with torch.cuda.device(dev):
         err = lib.f2v_ell_sample_force(
-            x.data_ptr(), xg.data_ptr(), int(xg.dtype == torch.bfloat16),
+            x.data_ptr(), xg.data_ptr(), _is_bf16(xg), _is_bf16(x),
             idx.data_ptr(), deg.data_ptr(), xi_row.data_ptr(),
             _table_ptr(model.sample_force, dev), float(step), out.data_ptr(),
             int(accumulate), c, k, dim,
@@ -561,8 +600,7 @@ def _tp_kind(model: ForceModel, kind: str):
 
 def _check_tp_operands(x, xg, table: EdgeWorkTable):
     dev = x.device
-    _check("x", x, (torch.float32,), 2, dev)
-    _check("xg", xg, _GATHER_DTYPES, 2, dev)
+    _check_x("x", x, xg, 2, 2)
     _require(xg.shape[1] == x.shape[1],
              f"xg rows of {xg.shape[1]} != x rows of {x.shape[1]}")
     _require(x.shape[0] == table.n_pad and xg.shape[0] == table.n_gather,
@@ -622,7 +660,7 @@ def tp_pair_partial_plain(model: ForceModel, x, xg,
     for rb, nb, _, rows, width in table.entries.tolist():
         nbr = table.nbr[nb: nb + rows * width].view(rows, width)
         deg = table.deg[rb: rb + rows]
-        xi = x[table.xi_row[rb: rb + rows].long()][:, None, :]
+        xi = x[table.xi_row[rb: rb + rows].long()].float()[:, None, :]
         xj = xg[nbr.long()].float()
         v = xi * xj if model.a_kind == "dot" else (xi - xj) ** 2
         part[nb: nb + rows * width] = torch.where(
@@ -640,7 +678,7 @@ def tp_pair_force_plain(model: ForceModel, kind: str, x, xg,
     Writes (or with ``accumulate`` adds) into ``out`` if given."""
     if out is None:
         _require(not accumulate, "accumulate needs out")
-        out = torch.zeros((table.out_rows, x.shape[1]), dtype=torch.float32,
+        out = torch.zeros((table.out_rows, x.shape[1]), dtype=x.dtype,
                           device=x.device)
     for (rb, nb, ob, rows, width), (nbr, deg, xi_row, _) in zip(
             table.entries.tolist(), table.parts()):
@@ -650,11 +688,7 @@ def tp_pair_force_plain(model: ForceModel, kind: str, x, xg,
                                       step, rsum) if kind == "edge" else
                  ell_sample_force_terms(model, x, xg, nbr, deg, xi_row, step,
                                         rsum))
-        dst = out[ob: ob + rows]
-        if accumulate:
-            dst.add_(terms.sum(dim=1))
-        else:
-            dst.copy_(terms.sum(dim=1))
+        _store(out[ob: ob + rows], terms.sum(dim=1), accumulate)
     return out
 
 
@@ -664,8 +698,8 @@ def tp_pair_partial(model: ForceModel, x, xg,
     is split over tp ranks: [slots] f32, to be summed over the ranks (an
     ``all_reduce``) and passed to ``tp_pair_force``.
 
-    x [table.n_pad, d] f32 and xg [table.n_gather, d] bf16 or f32 (the
-    gather table) hold this rank's d columns.  The scalars depend on the
+    x [table.n_pad, d] f32 or bf16 and xg [table.n_gather, d] bf16 or f32
+    (bf16 with a bf16 x; the gather table) hold this rank's d columns.  The scalars depend on the
     model's ``a_kind`` alone, so one table may hold the entries of several
     forces (``concat_work_tables``).
     """
@@ -678,7 +712,7 @@ def tp_pair_partial(model: ForceModel, x, xg,
     lib = _build.load_library()
     with torch.cuda.device(dev):
         err = lib.f2v_tp_pair_partial(
-            x.data_ptr(), xg.data_ptr(), int(xg.dtype == torch.bfloat16),
+            x.data_ptr(), xg.data_ptr(), _is_bf16(xg), _is_bf16(x),
             table.nbr.data_ptr(), table.deg.data_ptr(),
             table.xi_row.data_ptr(), part.data_ptr(), table.entries.ctypes.data,
             table.entries.shape[0], x.shape[1], int(model.a_kind == "dot"),
@@ -693,15 +727,16 @@ def tp_pair_force(model: ForceModel, kind: str, x, xg, table: EdgeWorkTable,
                   accumulate: bool = False) -> torch.Tensor:
     """The ``kind`` force over ``table`` on this rank's columns, from the
     pair scalars ``a`` [slots] f32 reduced over the tp ranks
-    (``tp_pair_partial``'s, summed).  invd [table.n_pad] f32 (read by the
-    sigmoid edge forces).  Writes into ``out`` [table.out_rows, d] f32 if
-    given (with ``accumulate``, adds into it); returns it.
+    (``tp_pair_partial``'s, summed; f32 whatever X's dtype).  invd
+    [table.n_pad] in x's dtype (read by the sigmoid edge forces).  Writes
+    into ``out`` [table.out_rows, d] of x's dtype if given (with
+    ``accumulate``, adds into it); returns it.
     """
     k, mid = _tp_kind(model, kind)
     _check_tp_operands(x, xg, table)
     dev = x.device
     _check("a", a, (torch.float32,), 1, dev)
-    _check("invd", invd, (torch.float32,), 1, dev)
+    _check("invd", invd, (x.dtype,), 1, dev)
     _require(a.shape[0] == table.nbr.shape[0], "a must hold one scalar per "
                                                "slot of the table")
     _require(invd.shape == (x.shape[0],), "invd must have one entry per x row")
@@ -717,7 +752,7 @@ def tp_pair_force(model: ForceModel, kind: str, x, xg, table: EdgeWorkTable,
     lib = _build.load_library()
     with torch.cuda.device(dev):
         err = lib.f2v_tp_pair_force(
-            x.data_ptr(), xg.data_ptr(), int(xg.dtype == torch.bfloat16),
+            x.data_ptr(), xg.data_ptr(), _is_bf16(xg), _is_bf16(x),
             table.nbr.data_ptr(), table.deg.data_ptr(),
             table.xi_row.data_ptr(), invd.data_ptr(), _table_ptr(fn, dev),
             a.data_ptr(), float(step), out.data_ptr(), int(accumulate),

@@ -16,6 +16,10 @@ seed.  ``unsafe=True`` skips the operator's checks that the lengths are
 non-negative and sum to the edge count: they would read the lengths back
 to the host once per batch.  The caller builds them from the CSR row
 pointers, which guarantees both.
+
+``add_rows`` adds rows into rows by an index (the sync and vertex
+schedules' hub partial sums into their owner rows): ``index_add_``, with
+a bf16 destination's sums taken in f32 and rounded once.
 """
 
 from __future__ import annotations
@@ -38,3 +42,14 @@ def segment_sum_into_batch(forces: torch.Tensor, lengths: torch.Tensor,
         raise ValueError(f"unknown segment mode {mode!r}")
     return torch.segment_reduce(forces, "sum", lengths=lengths, axis=0,
                                 unsafe=True)
+
+
+def add_rows(dst: torch.Tensor, index: torch.Tensor,
+             src: torch.Tensor) -> torch.Tensor:
+    """``dst.index_add_(0, index, src)``, in place; returns ``dst``.  A
+    bf16 ``dst`` (X held in bf16) gets each row's sum taken in f32 and
+    rounded once: bf16 atomics would round at every add, in an order that
+    changes from run to run, and a hub owner sums tens of partial rows."""
+    if dst.dtype == torch.float32:
+        return dst.index_add_(0, index, src)
+    return dst.copy_(dst.float().index_add_(0, index, src.float()))

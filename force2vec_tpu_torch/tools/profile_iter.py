@@ -3,7 +3,7 @@
     python3 -m force2vec_tpu_torch.tools.profile_iter [--iters 20]
         [--model tdist|sigmoid|rwalk|fr|linlog|forceatlas] [--per-vertex]
         [--n 131072] [--dim 128] [--hot-rows K]
-        [--trace PATH] [--json PATH]
+        [--dtype float32|bfloat16] [--trace PATH] [--json PATH]
 
 Needs one CUDA card.  Builds the same ``SyncForce2Vec`` as ``chip_smoke.py``
 (``bench.py``'s graph and TrainConfig, with ``--model`` in place of tdist,
@@ -11,7 +11,9 @@ with ``--per-vertex`` ``-bs 1`` negatives, with ``--n`` the graph's
 vertex count, as ``bench.py``'s ``BENCH_N``, and with ``--dim`` the
 embedding width, any from 1 to ``force_kernels.KERNEL_MAX_DIM``, and with
 ``--hot-rows`` the hot/cold split's hot suffix in rows, 0, the default,
-for none) and measures, on the kernel
+for none, and with ``--dtype`` X's dtype: float32, the default, with the
+bench's bf16 gather replica, or bfloat16, X itself the gather table, no
+cast) and measures, on the kernel
 path, an iteration as ``train()`` runs it (for walk models, the walk
 engine's draw included):
 
@@ -132,6 +134,9 @@ def main(argv=None) -> int:
                     "rounded up to 8)")
     ap.add_argument("--hot-rows", type=int, default=0,
                     help="the split's hot suffix in rows (0: no split)")
+    ap.add_argument("--dtype", default="float32",
+                    choices=[str(d).split(".")[1] for d in fk.X_DTYPES],
+                    help="X's dtype (TrainConfig.dtype)")
     ap.add_argument("--trace", default=None)
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
@@ -142,10 +147,12 @@ def main(argv=None) -> int:
     card = card_name_and_power()
     print(card, flush=True)
     print(f"model={args.model} per_vertex={args.per_vertex} n={args.n} "
-          f"dim={args.dim} hot_rows={args.hot_rows}", flush=True)
+          f"dim={args.dim} hot_rows={args.hot_rows} dtype={args.dtype}",
+          flush=True)
 
     cfg = dataclasses.replace(BENCH_CONFIG, model=args.model, dim=args.dim,
-                              per_vertex_samples=args.per_vertex)
+                              per_vertex_samples=args.per_vertex,
+                              dtype=args.dtype)
     t0 = time.perf_counter()
     fv = SyncForce2Vec(synth_powerlaw_graph(n=args.n), cfg, MIN_WIDTH,
                        HUB_WIDTH, device=dev,
@@ -168,7 +175,7 @@ def main(argv=None) -> int:
 
     for _ in range(5):  # build, load and warm up
         iteration()
-    # the host cost of the path's one edge launch
+    # the host cost of the path's one edge launch (a bf16 X is its replica)
     xg = x.to(torch.bfloat16)
     if is_walk:  # over the walk table
         walks = fv.draw_walks(gen)
@@ -184,7 +191,7 @@ def main(argv=None) -> int:
             fk.ell_edge_force_table(fv.model, x, xg, fv.edge_table,
                                     fv.inv_deg, fv.lr)
     res = {"card": card, "model": cfg.model, "n": args.n, "dim": cfg.dim,
-           "per_vertex_samples": cfg.per_vertex_samples,
+           "dtype": cfg.dtype, "per_vertex_samples": cfg.per_vertex_samples,
            "split": {"stats": stats}, "repeats": []}
     for _ in range(3):
         r = {"ms_per_iter": cuda_ms(iteration, args.iters),

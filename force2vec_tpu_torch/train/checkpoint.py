@@ -3,7 +3,9 @@
 The port of ``force2vec_tpu/train/checkpoint.py``.  A checkpoint is one
 ``.npz``: the canonical ``[n, dim]`` embedding (original vertex order, the
 ``dim`` columns of the run, never the trainers' padded row width), the
-iteration count, and the seed and dim to sanity-check a resume.  Writes
+iteration count, and the seed and dim to sanity-check a resume.  A bf16
+embedding is stored as the JAX package stores one, raw 2-byte ``|V2``
+words, so each package reads the other's files.  Writes
 are atomic (temporary file and rename), so a kill mid-write cannot corrupt
 the latest checkpoint.
 """
@@ -19,17 +21,30 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from force2vec_tpu_torch.convert import (bf16_words_to_f32, is_bf16_words,
+                                         tensor_to_bf16_words)
 
-def save_checkpoint(path: str, emb: np.ndarray, iteration: int,
+
+def _savable(emb) -> np.ndarray:
+    """The array a checkpoint stores: a bf16 tensor's ``|V2`` words, any
+    other tensor's values, a numpy array as it is."""
+    if not isinstance(emb, torch.Tensor):
+        return np.asarray(emb)
+    if emb.dtype == torch.bfloat16:
+        return tensor_to_bf16_words(emb)
+    return emb.detach().to("cpu").numpy()
+
+
+def save_checkpoint(path: str, emb, iteration: int,
                     meta: Optional[dict] = None) -> None:
-    """Atomically write the embedding, the iteration and ``meta`` to
-    ``path``."""
+    """Atomically write the embedding (numpy, or a tensor: a bf16 one as
+    ``|V2`` words), the iteration and ``meta`` to ``path``."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or ".",
                                suffix=".tmp")
     try:
         with os.fdopen(fd, "wb") as f:
-            np.savez(f, emb=np.asarray(emb), iteration=iteration,
+            np.savez(f, emb=_savable(emb), iteration=iteration,
                      **(meta or {}))
         os.replace(tmp, path)
     except BaseException:
@@ -39,9 +54,13 @@ def save_checkpoint(path: str, emb: np.ndarray, iteration: int,
 
 
 def load_checkpoint(path: str) -> Tuple[np.ndarray, int]:
-    """Return (embedding, iteration)."""
+    """Return (embedding, iteration).  A bf16 embedding (``|V2`` words)
+    comes back as f32, an exact widening: a trainer holding X in bf16
+    (``pad_embedding``) narrows it back bit for bit."""
     with np.load(path) as z:
-        return z["emb"], int(z["iteration"])
+        emb = z["emb"]
+        return (bf16_words_to_f32(emb) if is_bf16_words(emb) else emb,
+                int(z["iteration"]))
 
 
 class _HostSnapshot:
@@ -50,7 +69,7 @@ class _HostSnapshot:
     waiting, and an event marks its end: the trainers update X in place,
     and the copy, queued on the stream before the next span's kernels,
     reads X before they move it.  ``wait`` returns the host array once the
-    copy has landed."""
+    copy has landed, as a host tensor."""
 
     def __init__(self):
         self._buf = None
@@ -67,10 +86,10 @@ class _HostSnapshot:
         self._done = torch.cuda.Event()
         self._done.record(torch.cuda.current_stream(emb.device))
 
-    def wait(self) -> np.ndarray:
+    def wait(self) -> torch.Tensor:
         if self._done is not None:
             self._done.synchronize()
-        return self._buf.numpy()
+        return self._buf
 
 
 def train_with_checkpoints(

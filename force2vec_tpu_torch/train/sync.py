@@ -5,7 +5,8 @@ read in an iteration sees the iteration-start X and the update is applied
 once at its end (sample/algorithms.cpp:569-639 with NUMSIZE = n).  One
 iteration over the degree-sorted ELL layout (graphs/csr.py::SyncLayout):
 
-1. ``xg``: the gather replica of X (bf16 when ``gather_dtype`` says so);
+1. ``xg``: the gather replica of X (bf16 when ``gather_dtype`` says so;
+   X itself when X is bf16, ``TrainConfig(dtype="bfloat16")``: no cast);
 2. attraction, by the edge kernel (``ell_edge_force``):
 
    * CSR models: one launch over the layout's work table
@@ -13,7 +14,8 @@ iteration over the degree-sorted ELL layout (graphs/csr.py::SyncLayout):
      the update's rows; the hub bucket's virtual rows write partial sums to
      rows past ``n_pad``, which ``index_add_`` adds into their owner rows,
      and a width-0 entry zeroes the rows no bucket writes (the hub owners
-     and padding);
+     and padding; with a bf16 X the owners' sums are taken in f32,
+     ``ops/segment.py::add_rows``);
    * with the hot/cold gather split (``hot_rows > 0``; the layout's hot
      suffix, the top ``hot_rows`` rows of the degree order, is the
      relabeled rows ``[n - hot_rows, n)``): that launch over the cold
@@ -38,6 +40,12 @@ iteration over the degree-sorted ELL layout (graphs/csr.py::SyncLayout):
      ``[n_pad, ns]`` sample ids, gathered and added in the kernel;
 
 4. ``X += update`` (or the energy-normalized update), in place.
+
+X is f32 or bf16 (``config.dtype``; ``force_kernels.X_DTYPES``, the
+constructor refuses any other, naming it).  The update, ``inv_deg`` and
+the step are in X's dtype, as in the JAX package (its ``sync.py:133-138,
+:661, :712-714``): the kernels sum in f32 and round each force once to
+X's dtype, and the adds and the apply run in X's dtype.
 
 Padding rows take part as in the JAX package: their update is computed and
 applied, and no edge or sample of a real row reads them.  Everything runs
@@ -92,8 +100,9 @@ from force2vec_tpu_torch.dist.spmd import SpmdAxes
 from force2vec_tpu_torch.graphs.csr import Graph, SyncLayout
 from force2vec_tpu_torch.models.forces import get_model
 from force2vec_tpu_torch.ops import force_kernels
+from force2vec_tpu_torch.ops.segment import add_rows
 from force2vec_tpu_torch.train.trainer import (TrainConfig, iteration_seed,
-                                               step_at)
+                                               round_to, step_at)
 
 
 @dataclasses.dataclass
@@ -204,6 +213,9 @@ class SyncForce2Vec:
         self.config = config
         self.device = torch.device(device)
         self.spmd = spmd
+        self._dtype = getattr(torch, config.dtype)
+        # the kernels (and their plain versions) hold X in f32 or bf16
+        force_kernels.check_x_dtype(self._dtype)
         self.model = get_model(config.model, sm_table=config.sm_table)
         if self.model.repulsion == "all":
             raise ValueError("tdist_exact uses the batch trainer, not sync mode")
@@ -232,7 +244,6 @@ class SyncForce2Vec:
                     f"{self._dim} (dim {config.dim} over tp={spmd.n_tp}); "
                     "the batch schedule (--schedule batch) trains at any "
                     "dim")
-        self._dtype = getattr(torch, config.dtype)
         self._gdt = (None if config.gather_dtype is None
                      else getattr(torch, config.gather_dtype))
         if hot_rows > 0 and self.model.attraction == "walk":
@@ -617,8 +628,9 @@ class SyncForce2Vec:
         added into their owners."""
         upd = g.index_select(0, self._dp_src)
         if self._hub is not None:
-            upd[self._hub.start: self.layout.n].index_add_(
-                0, self._hub.owner_local, g.index_select(0, self._dp_hub_src))
+            add_rows(upd[self._hub.start: self.layout.n],
+                     self._hub.owner_local,
+                     g.index_select(0, self._dp_hub_src))
         return upd
 
     def _place_attraction(self, out: torch.Tensor) -> torch.Tensor:
@@ -635,8 +647,8 @@ class SyncForce2Vec:
             return self._dp_place(g)
         upd = out[:n_pad]
         if self._hub is not None:
-            upd[self._hub.start: self.layout.n].index_add_(
-                0, self._hub.owner_local, out[n_pad:])
+            add_rows(upd[self._hub.start: self.layout.n],
+                     self._hub.owner_local, out[n_pad:])
         return upd
 
     def _walk_launch(self, x, xg, walks, step, plain) -> torch.Tensor:
@@ -697,7 +709,10 @@ class SyncForce2Vec:
     def _iteration(self, x: torch.Tensor, negs: torch.Tensor,
                    walks: Optional[torch.Tensor], step: float,
                    plain: bool) -> torch.Tensor:
-        xg = x if self._gdt is None else x.to(self._gdt)
+        # a bf16 X is its own replica: with gather_dtype f32 the JAX package
+        # casts it up and straight back (sync.py:325-326), the same values
+        xg = (x if self._gdt is None or x.dtype == torch.bfloat16
+              else x.to(self._gdt))
         upd = self._forces(x, xg, negs, walks, step, plain)
         if self.model.update == "energy":
             fnorm = self._rsum(upd * upd)
@@ -706,7 +721,7 @@ class SyncForce2Vec:
         return x.add_(upd)
 
     def _step(self, it: int) -> float:
-        return step_at(self.model, self.lr, it)
+        return step_at(self.model, self.lr, it, self._dtype)
 
     # -- public API ----------------------------------------------------------
 
@@ -723,7 +738,8 @@ class SyncForce2Vec:
 
         ``plain=True`` computes the same iteration with the plain PyTorch
         versions of the kernels on ``x``'s device: the reference the
-        kernels are checked against on the card.
+        kernels are checked against on the card.  The step is rounded to
+        X's dtype first, as the JAX package rounds it.
         """
         want = (self.layout.n_pad, self.row_width)
         if tuple(x.shape) != want:
@@ -743,8 +759,9 @@ class SyncForce2Vec:
             if tuple(walks.shape) != want:
                 raise ValueError(f"walks {tuple(walks.shape)} != {want}")
             walks = walks.to(torch.int32).contiguous()
+        step = round_to(self.lr if step is None else step, self._dtype)
         return self._iteration(x, negs.to(torch.int32).contiguous(), walks,
-                               self.lr if step is None else step, plain)
+                               step, plain)
 
     def run_span(self, x: torch.Tensor, seed: int, num_iters: int,
                  iter_offset: int = 0) -> torch.Tensor:

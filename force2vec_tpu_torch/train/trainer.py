@@ -23,8 +23,10 @@ built, ``DeviceGraph.batch_spans``):
   family), in place.
 
 The JAX package computes this loop in XLA with no Pallas kernel, so its
-port is plain torch operations.  ``gather_dtype`` is the sync schedule's
-and is ignored here, as in the JAX package.
+port is plain torch operations, in X's dtype (``TrainConfig.dtype``, f32
+or bf16 on the card; the step rounded to it, as the JAX package rounds
+it).  ``gather_dtype`` is the sync schedule's and is ignored here, as in
+the JAX package.
 
 Under ``spmd`` (``dist/multihost.py::pod_mesh``, one process per
 card) each dp rank computes its contiguous 1/dp of every batch's rows
@@ -92,10 +94,30 @@ def iteration_seed(seed: int, it: int) -> int:
     return int(state[0]) << 32 | int(state[1])
 
 
-def step_at(model: ForceModel, lr: float, it: int) -> float:
-    """The step of iteration ``it``: ``lr``, decayed by 0.999 an iteration
-    for the ``decay999`` schedule (sample/algorithms.cpp:436)."""
-    return lr * 0.999 ** it if model.lr_schedule == "decay999" else lr
+def round_to(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to ``dtype`` (X's), as a Python float: the step the
+    JAX package holds (``jnp.asarray(step, dtype=x.dtype)``).  On the host,
+    with no torch operation, through f32 as torch converts a Python float:
+    bf16 as the top half of the f32, rounded to nearest even."""
+    if dtype == torch.float64:
+        return float(v)
+    if dtype != torch.bfloat16:
+        return float(np.dtype(str(dtype).split(".")[1]).type(np.float32(v)))
+    bits = int(np.array(v, dtype=np.float32).view(np.uint32))
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) >> 16 << 16
+    return float(np.array(bits, dtype=np.uint32).view(np.float32))
+
+
+def step_at(model: ForceModel, lr: float, it: int,
+            dtype: torch.dtype = torch.float32) -> float:
+    """The step of iteration ``it`` in X's ``dtype``: ``lr``, decayed by
+    0.999 an iteration for the ``decay999`` schedule
+    (sample/algorithms.cpp:436), each rounded to ``dtype`` as the JAX
+    package rounds them (force2vec_tpu/train/trainer.py:361-363: the decay
+    factor, then the product)."""
+    if model.lr_schedule != "decay999":
+        return round_to(lr, dtype)
+    return round_to(lr * round_to(0.999 ** it, dtype), dtype)
 
 
 def _auto_edge_chunk(graph: Graph, num_batches: int) -> int:
@@ -275,7 +297,8 @@ class Force2Vec:
         xb.add_(acc)
 
     def _iteration(self, x, negs, walks, step) -> torch.Tensor:
-        step = float(np.float32(step))  # the JAX package's f32 step
+        # the JAX package's step, in X's dtype (trainer.py:310)
+        step = round_to(step, self._dtype)
         for b in range(self.dg.num_batches):
             self._batch(x, b, negs, walks, step)
         return x
@@ -338,7 +361,8 @@ class Force2Vec:
         iteration)``, so spans compose into the straight run."""
         for it in range(iter_offset, iter_offset + num_iters):
             negs, walks = self._draw(seed, it)
-            self._iteration(x, negs, walks, step_at(self.model, self.lr, it))
+            self._iteration(x, negs, walks,
+                            step_at(self.model, self.lr, it, self._dtype))
         return x
 
     def train(self, iters: int = 1200, seed: int = 1,

@@ -29,6 +29,11 @@ gather dtype), min_width 8, hub_width 128, ``shared`` sampling and
 ``pool`` sampling with a 128-row pool; ``--iters`` iterations; their
 distance gaps.
 
+``tdist_x_bf16``, ``tdist_per_vertex_x_bf16`` and ``tdist_batch_x_bf16``
+are ``tdist``, ``tdist_per_vertex`` and ``tdist_batch`` with X itself held
+in bf16 (``TrainConfig(dtype="bfloat16")``, no separate gather replica), as
+``chip_smoke.py`` path I3 trains the port's.
+
 ``tdist_d32``, ``tdist_per_vertex_d256``, ``rwalk_d100`` and ``fr_d2``
 are the sync configurations of ``chip_smoke.py`` path G2, at the bench
 configuration with the width changed: tdist at dim 32, tdist ``-bs 1`` at
@@ -94,6 +99,13 @@ CONFIGS = {
                                                  per_vertex_samples=True),
     "rwalk_d100": dataclasses.replace(BASE, dim=100, model="rwalk"),
     "fr_d2": dataclasses.replace(BASE, dim=2, model="fr"),
+    # chip_smoke.py path I3: X itself held in bf16 (the gathers read X)
+    "tdist_x_bf16": dataclasses.replace(BASE, dtype="bfloat16",
+                                        gather_dtype=None),
+    "tdist_per_vertex_x_bf16": dataclasses.replace(
+        BASE, dtype="bfloat16", gather_dtype=None, per_vertex_samples=True),
+    "tdist_batch_x_bf16": TrainConfig(dim=128, model="tdist", ns=5,
+                                      batch_size=256, dtype="bfloat16"),
 }
 
 
@@ -162,7 +174,7 @@ def main(argv=None) -> int:
         if args.only and name not in args.only:
             continue
         t0 = time.perf_counter()
-        if name == "tdist_batch":
+        if name.startswith("tdist_batch"):
             emb = Force2Vec(graph, cfg).train(iters=args.batch_iters,
                                               seed=args.seed)
         elif name.startswith("tdist_vertex"):
