@@ -22,7 +22,8 @@ the main path, tdist with 256-row group-shared negatives (``-option 5``):
    queued ahead of the device, beside its per-bucket launches; then shows
    that the same bound rejects four planted faults;
 4. runs one iteration through the kernels and through the plain versions
-   from the same X and negatives, and times both;
+   from the same X and negatives (no ``add_``: the repulsion launch
+   applies X += update + repulsion), and times both;
 5. trains 50 iterations through the kernels, checks the launch counts (one
    edge launch per iteration), that X is finite, and that edges end closer
    than random pairs;
@@ -210,7 +211,8 @@ gather table), at the main path's configuration:
     and with x_i read as zeros; each timed beside its bound and plain
     version;
 39. (I2) one iteration through the kernels and the plain versions: no
-    cast of X, two ``add_``s, each element within the bf16 roundings the
+    cast of X, no ``add_`` (the repulsion launch applies X += update +
+    repulsion), each element within the bf16 roundings the
     two may each make their own way (one ulp each of the attraction, the
     repulsion, the update and X, and of each hub partial row); then
     against the f32-X iteration from the same X, its difference stated;
@@ -223,9 +225,39 @@ gather table), at the main path's configuration:
 42. (I5) main queued with f32 X and with bf16 X in turns, at the bench
     graph and at 1,048,576 vertices, and the batch schedule back to back.
 
+path J, ``grouped_rep_force``'s three output modes (``store``; ``add``
+into the update, as the layout family runs it; ``apply``, X += update +
+repulsion in place, the main path's and rwalk's last launch):
+
+43. (J1) at every row class (dims 2 to 1024) with f32 X (bf16 and f32
+    samples) and bf16 X, tdist over every 256-row group: each mode against
+    its exact composition from the plain terms, within SUM_RTOL (scaled
+    above dim 128) of Σ|terms| plus half an ulp of each rounding the mode
+    makes; ``add`` and ``apply`` bit for bit ``out.add_`` of the stored
+    result and ``upd.add_(rep); x.add_(upd)``; padding columns 0; at dims
+    100 and 128 a planted fault per mode (the last sample skipped, out
+    not read, upd not read) that the bound must catch; more samples than
+    a launch holds (a launch a chunk, the f32 sums passed on) in each
+    mode; every sample model's ``add`` and ``apply`` bit for bit at the
+    bench dim, and ``apply`` with an energy model refused;
+44. (J3) one iteration of main (f32 and bf16 X), rwalk and linlog in the
+    mode the trainer derives (apply, add for linlog; store under dp): the
+    launch against the store launch and the ``add_``s composed from copies
+    of its operands, bit for bit; an ``apply`` iteration calls no
+    ``add_``, and no launch count, torch operation or device kernel
+    follows the repulsion (the profiler's kernels, recorded in a fresh
+    process: the full run takes path J as ``--path J``);
+45. (J4) 50 iterations of main (f32 and bf16 X) and rwalk with exact
+    launch counts against the main path's and path I's margins;
+46. (J5) each mode queued and back to back beside its bound and plain
+    version at the bench shape; ``store`` and ``apply`` queued at every
+    row class; main queued with the store launch and the ``add_``s in the
+    apply launch's place and with the trainer's ``apply``, in turns.
+
 ``python3 chip_smoke.py --path F`` builds the kernels and runs path F
 alone (a check of the multi-card schedules on a host with several cards);
-``--path G`` runs path G alone, ``--path H`` path H, ``--path I`` path I.
+``--path G`` runs path G alone, ``--path H`` path H, ``--path I`` path I,
+``--path J`` path J.
 
 The quality margins are half of what the JAX package reaches on the CPU
 with the same graph, configuration and iteration count
@@ -451,6 +483,14 @@ G2_RUNS = (
      JAX_RWALK_D100_DOT_GAP),
     ("fr dim 2", dict(dim=2, model="fr"), "fr", JAX_FR_D2_GAP),
 )
+# path J, grouped_rep_force's modes (store, add into the update, apply X
+# += update + repulsion): every row class of both X dtypes at these dims
+# (path G's and the full classes of dims 64 and 128), with (X, sample)
+# dtypes; the planted faults at J_FAULT_DIMS
+J_DIMS = (2, 8, 16, 24, 32, 64, 100, 128, 256, 512, 1000, 1024)
+J_DTYPES = ((torch.float32, torch.bfloat16), (torch.float32, torch.float32),
+            (torch.bfloat16, torch.bfloat16))
+J_FAULT_DIMS = (100, 128)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # The card's peaks for bound_ms (H100 SXM at 700 W): device memory, and
 # f32 outside the tensor cores.
@@ -493,13 +533,14 @@ FORCE_KERNELS = ("ell_edge_force_kernel<", "ell_sample_force_kernel<",
                  "tp_pair_force_kernel<")
 # (replica, X in bf16, lanes a row, pieces a lane, the row fills its class,
 # model): dim 128 in bf16 fills 16 lanes of one 16-byte piece; the
-# repulsion's f32 rows 32 lanes (X in bf16: path I)
+# repulsion's rows are in X's type: 32 lanes of f32, 16 of bf16 (X in
+# bf16: path I)
 MAIN_INSTANCES = ("ell_edge_force_kernel<bf16, 0, 16, 1, 1, 0>",
                   "ell_sample_force_kernel<bf16, 0, 16, 1, 1, 0>",
                   "grouped_rep_force_kernel<0, 32, 1, 1, 0>",
                   "ell_edge_force_kernel<bf16, 1, 16, 1, 1, 0>",
                   "ell_sample_force_kernel<bf16, 1, 16, 1, 1, 0>",
-                  "grouped_rep_force_kernel<1, 32, 1, 1, 0>")
+                  "grouped_rep_force_kernel<1, 16, 1, 1, 0>")
 RING_INSTANCES = ("take_sum_kernel<bf16>", "take_sum_kernel<f32>",
                   "tile_force_tc_kernel<bf16>", "tile_force_tc_kernel<f32>")
 # take_sum's ring depths (stages per block) timed
@@ -781,22 +822,44 @@ def other_models_phase(fv, x, xg):
 
 
 def rep_phase(fv, x, xg, card):
-    """Repulsion kernel vs plain at the bench shape."""
+    """Repulsion kernel vs plain at the bench shape: stored, against its
+    plain terms; then as the main path runs it, applying X += update +
+    repulsion in place, bit for bit the stored result's two ``add_``s;
+    both timed beside their bounds and plain versions."""
     sg = bench_samples(fv, xg, seed=5)
     e, ratio = check_rep(fv.model, x, sg, fv.lr, "tdist")
     check(e <= REP_TOL, f"grouped_rep_force: max |err| {e:.3e} > {REP_TOL}")
-    args = (fv.model, BENCH_CONFIG.batch_size, x, sg, fv.lr)
+    group = BENCH_CONFIG.batch_size
+    args = (fv.model, group, x, sg, fv.lr)
     km = cuda_ms(lambda: fk.grouped_rep_force(*args), reps=20)
     pm = cuda_ms(lambda: fk.grouped_rep_force_plain(*args), reps=5)
+    upd = x * 0.01
+    xa = x.clone()
+    fk.grouped_rep_force(fv.model, group, xa, sg, fv.lr, mode="apply",
+                         upd=upd)
+    check(torch.equal(xa, x.clone().add_(upd.clone().add_(
+        fk.grouped_rep_force(*args)))),
+          "grouped_rep_force apply differs from upd.add_(rep); x.add_(upd)")
+    am = cuda_ms(lambda: fk.grouped_rep_force(
+        fv.model, group, xa, sg, fv.lr, mode="apply", upd=upd), reps=20)
+    apm = cuda_ms(lambda: fk.grouped_rep_force_plain(
+        fv.model, group, xa, sg, fv.lr, mode="apply", upd=upd), reps=5)
     n, dim = x.shape
-    nbytes = 2 * n * dim * x.element_size() + sg.numel() * sg.element_size()
-    b_ms, by = bound_ms(nbytes, n * sg.shape[1]
-                        * term_flops(fv.model, "sample", dim))
+    flops = n * sg.shape[1] * term_flops(fv.model, "sample", dim)
+    sg_bytes = sg.numel() * sg.element_size()
+    nbytes = 2 * n * dim * x.element_size() + sg_bytes
+    b_ms, by = bound_ms(nbytes, flops)
+    a_bytes = 3 * n * dim * x.element_size() + sg_bytes
+    ab_ms, a_by = bound_ms(a_bytes, flops)
     say(f"grouped_rep_force rows={n} groups={sg.shape[0]} "
         f"max_abs_err={e:.3e} bound_ratio={ratio:.4f} kernel_ms={km:.4f} "
         f"plain_ms={pm:.4f} bound_ms={b_ms:.4f} ({by}: "
-        f"{nbytes / 1e6:.1f} MB) [{card}]")
-    return dict(max_abs_err=e, ms=km, plain_ms=pm, bound_ms=b_ms, bound_by=by)
+        f"{nbytes / 1e6:.1f} MB); applying X += update + repulsion (bit "
+        f"for bit the two add_s): kernel_ms={am:.4f} plain_ms={apm:.4f} "
+        f"bound_ms={ab_ms:.4f} ({a_by}: {a_bytes / 1e6:.1f} MB) [{card}]")
+    return dict(max_abs_err=e, ms=am, plain_ms=apm, bound_ms=ab_ms,
+                bound_by=a_by, mode="apply", store_ms=km, store_plain_ms=pm,
+                store_bound_ms=b_ms)
 
 
 def _tdist_rep_r_squared(xi, s, step, rsum=None, mask=None):
@@ -1008,9 +1071,9 @@ def main_path(graph, dev, card):
     ng = -(-lay.n_pad // BENCH_CONFIG.batch_size)
     negs = np.random.default_rng(7).integers(
         0, graph.n - 1, size=(ng, BENCH_CONFIG.ns)).astype(np.int32)
-    # the repulsion's add_ and X += update
+    # none: the repulsion launch applies X += update + repulsion
     iter_ms, iter_plain_ms, iter_q_ms = iteration_phase(fv, x0, card, negs,
-                                                        adds=2)
+                                                        adds=0)
     updates = graph.nnz + graph.n * BENCH_CONFIG.ns  # bench.py:158-161
     say(f"ms_per_iteration kernels={iter_ms:.4f} plain={iter_plain_ms:.4f} "
         f"(CUDA events) [{card}]")
@@ -3469,10 +3532,10 @@ def split_path(graph, dev, card, big=True):
                          "row's last slot")
     check(dropped >= ITER_TOL, "an iteration without its hot launch passed "
                                "the iteration bound")
-    # the repulsion's add_ and X += update: the hot launch adds in the
-    # kernel
+    # none: the hot launch adds in the kernel, the repulsion launch
+    # applies X += update + repulsion
     iter_ms, iter_plain_ms, q_ms = iteration_phase(fv, x0, card, negs,
-                                                   adds=2)
+                                                   adds=0)
     rec["iteration_queued_ms"] = q_ms
     say(f"H split ms_per_iteration kernels={iter_ms:.4f} plain="
         f"{iter_plain_ms:.4f} queued={q_ms:.4f} [{card}]")
@@ -3679,8 +3742,9 @@ def ulp_ratio(got, want, bound):
 def x_bf16_iteration_phase(fv, x0, negs_t, card):
     """I2: one bf16-X iteration through the kernels and through the plain
     versions, from one X and negatives: no cast of X (no ``_to_copy`` of
-    its shape; the f32-X iteration makes one), two ``add_``s (the
-    repulsion's and X += update), each element within the roundings the two
+    its shape; the f32-X iteration makes one), no ``add_`` (the repulsion
+    launch applies X += update + repulsion), each element within the
+    roundings the two
     may each make their own way (``rounding_bound``); then against the
     f32-X iteration (bf16 gathers) from the same X, its difference stated.
     Returns the bf16 iteration's max |dX| from the f32 one."""
@@ -3695,7 +3759,7 @@ def x_bf16_iteration_phase(fv, x0, negs_t, card):
         f"f32-X iteration: {f32_casts} casts of X)")
     check(f32_casts == 1, f"an f32-X iteration casts X {f32_casts} times")
     check(casts == 0, f"a bf16-X iteration casts {casts} times, not 0")
-    check(adds == 2, f"a bf16-X iteration calls add_ {adds} times, not 2")
+    check(adds == 0, f"a bf16-X iteration calls add_ {adds} times, not 0")
     a, b = run(x0.clone()), run(x0.clone(), plain=True)
     check(a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all()),
           f"the bf16-X iteration: {a.dtype}, finite "
@@ -3917,6 +3981,467 @@ def x_bf16_path(graph, dev, card):
     return rec, counts, timing
 
 
+# -- path J: grouped_rep_force's three modes -----------------------------------
+
+
+def rounding_half_ulp(t):
+    """The most one add in f32, rounded to ``t``'s dtype (f32 or bf16),
+    moved each element of ``t``, as f32: half an ulp of f32, and for bf16
+    half a bf16 ulp more (the f32 sum rounded again); 0 where t is 0,
+    which these adds give only exactly."""
+    _, e = torch.frexp(t.float())  # |t| in [2^(e-1), 2^e)
+    one = torch.ones_like(e, dtype=torch.float32)
+    h = torch.ldexp(one, e - 25)
+    if t.dtype == torch.bfloat16:
+        h = h + torch.ldexp(one, e - 9)
+    return torch.where(t == 0, 0.0, h)
+
+
+def rep_modes(model, group, xi, sg, step, out0, upd):
+    """One launch of each mode from the same inputs: (store's result, add's
+    into a copy of ``out0``, apply's X from a copy of ``xi`` with
+    ``upd``)."""
+    store = fk.grouped_rep_force(model, group, xi, sg, step)
+    add = fk.grouped_rep_force(model, group, xi, sg, step, mode="add",
+                               out=out0.clone())
+    x = xi.clone()
+    fk.grouped_rep_force(model, group, x, sg, step, mode="apply", upd=upd)
+    return store, add, x
+
+
+def rep_mode_ratios(model, group, xi, sg, step, out0, upd, got, rtol,
+                    fault=None):
+    """{mode: bound ratio} of ``got`` (``rep_modes``' three results)
+    against each mode composed exactly (f64) from the plain terms:
+    |got - ref| ≤ rtol·Σ|terms| plus half an ulp of each rounding the mode
+    makes (the repulsion's to a bf16 X; add: the sum's; apply: upd + rep's
+    and X + it's).  ``fault``, a planted one the ratio must catch: "store"
+    skips each group's last sample, "add" leaves out0 out, "apply" upd."""
+    rows = xi.shape[0]
+    chunk = max(group, G_TERMS // (sg.shape[1] * xi.shape[1]) // group
+                * group)
+    worst = dict.fromkeys(fk.REP_MODES, 0.0)
+    store, add, apply = got
+    for r0 in range(0, rows, chunk):
+        r = slice(r0, min(rows, r0 + chunk))
+        t = fk.grouped_rep_force_terms(model, group, xi[r], sg[r0 // group:],
+                                       step)
+        scale = rtol * t.abs().sum(dim=1) + half_ulp(store[r])
+        s = (t[:, :-1] if fault == "store" else t).double().sum(dim=1)
+        x, u = xi[r].double(), upd[r].double()
+        refs = {"store": s,
+                "add": s if fault == "add" else out0[r].double() + s,
+                "apply": x + s if fault == "apply" else x + (u + s)}
+        u_rep = upd[r].clone().add_(store[r])
+        scales = {"store": scale,
+                  "add": scale + rounding_half_ulp(add[r]),
+                  "apply": (scale + rounding_half_ulp(u_rep)
+                            + rounding_half_ulp(apply[r]))}
+        for m, g in zip(fk.REP_MODES, (store, add, apply)):
+            e = (g[r].double() - refs[m]).abs()
+            worst[m] = max(worst[m], float(torch.where(
+                e == 0, 0.0, e / scales[m].double()).max()))
+    return worst
+
+
+def rep_mode_inputs(n_pad, dim, x_dtype, seed, dev):
+    """X at ``padded_dim(dim)`` columns in ``x_dtype``, and an out and an
+    update of its shape and dtype, small as an iteration's (padding
+    columns 0)."""
+    x = padded_x(n_pad, dim, seed, dev).to(x_dtype)
+    out0 = (padded_x(n_pad, dim, seed + 1, dev) * 0.01).to(x_dtype)
+    upd = (padded_x(n_pad, dim, seed + 2, dev) * 0.01).to(x_dtype)
+    return x, out0, upd
+
+
+def rep_mode_check(fv, dim, x_dtype, sg_dtype, dev, faults):
+    """J1 at one width and pair of dtypes: tdist over every row's 256-row
+    group of the bench layout, each mode against its exact composition
+    (``rep_mode_ratios``), add and apply bit for bit against store then
+    ``out.add_`` (``upd.add_(rep); x.add_(upd)``), every output's padding
+    columns 0; with ``faults`` each mode's planted fault, which must fail.
+    Returns ({mode: ratio}, {mode: fault ratio})."""
+    n_pad, group, step = fv.layout.n_pad, BENCH_CONFIG.batch_size, 0.02
+    x, out0, upd = rep_mode_inputs(n_pad, dim, x_dtype, dim, dev)
+    xg = x if x_dtype == torch.bfloat16 else x.to(sg_dtype)
+    sg = bench_samples(fv, xg, seed=5)
+    tdist = get_model("tdist")
+    got = rep_modes(tdist, group, x, sg, step, out0, upd)
+    what = (f"grouped_rep_force dim {dim} X {str(x_dtype)[6:]} samples "
+            f"{str(sg_dtype)[6:]}")
+    store, add, apply = got
+    check(torch.equal(add, out0.clone().add_(store)),
+          f"path J {what}: add differs from out.add_ of the stored result")
+    check(torch.equal(apply, x.clone().add_(upd.clone().add_(store))),
+          f"path J {what}: apply differs from upd.add_(rep); x.add_(upd)")
+    for m, g in zip(fk.REP_MODES, got):
+        check(not bool(g[:, dim:].any()),
+              f"path J {what} {m}: a padding column is not 0")
+    ratios = rep_mode_ratios(tdist, group, x, sg, step, out0, upd, got,
+                             width_rtol(dim))
+    for m, r in ratios.items():
+        check(r <= 1.0, f"path J {what} {m}: |err| exceeds the bound by "
+                        f"{r:.3f}x")
+    caught = {}
+    if faults:
+        for m in fk.REP_MODES:
+            caught[m] = rep_mode_ratios(tdist, group, x, sg, step, out0, upd,
+                                        got, width_rtol(dim), fault=m)[m]
+            check(caught[m] > 1.0, f"path J {what}: the bound passed the "
+                                   f"planted {m} fault ({caught[m]:.3f})")
+    return ratios, caught
+
+
+def rep_chunked_check(fv, dim, x_dtype, dev):
+    """J1 with more samples a group than a launch's shared memory holds
+    (G_MANY_SAMPLES): a launch a chunk in each mode, the sums passed on in
+    f32; store within its bound, add and apply bit for bit store then the
+    adds.  Returns the store's ratio."""
+    n_pad, group, step = fv.layout.n_pad, BENCH_CONFIG.batch_size, 0.02
+    x, out0, upd = rep_mode_inputs(n_pad, dim, x_dtype, dim + 7, dev)
+    xg = x.to(torch.bfloat16)
+    ng = -(-n_pad // group)
+    sg = xg[torch.randint(0, fv.layout.n - 1, (ng, G_MANY_SAMPLES),
+                          device=dev,
+                          generator=torch.Generator(dev).manual_seed(23))]
+    tdist = get_model("tdist")
+    per = fk._MAX_SAMPLE_BYTES // (fk.padded_dim(dim) * 4)
+    before = fk.launch_counts["grouped_rep_force"]
+    got = rep_modes(tdist, group, x, sg, step, out0, upd)
+    launches = fk.launch_counts["grouped_rep_force"] - before
+    check(dev.type == "cpu" or launches == 3 * -(-G_MANY_SAMPLES // per),
+          f"path J chunked dim {dim}: {launches} launches for 3 modes of "
+          f"{G_MANY_SAMPLES} samples, {per} a launch")
+    store, add, apply = got
+    check(torch.equal(add, out0.clone().add_(store))
+          and torch.equal(apply, x.clone().add_(upd.clone().add_(store))),
+          f"path J chunked dim {dim}: add or apply differs from store and "
+          "the adds")
+    ratio = rep_mode_ratios(tdist, group, x, sg, step, out0, upd, got,
+                            width_rtol(dim))["store"]
+    check(ratio <= 1.0, f"path J chunked dim {dim}: bound ratio {ratio:.3f}")
+    return ratio
+
+
+def rep_models_check(fv, dev):
+    """Every sample model (tdist, sigmoid exact and table, layout) at the
+    bench dim, both X dtypes: add and apply bit for bit store then the
+    adds; apply refused with an energy model, no launch."""
+    n_pad, group = fv.layout.n_pad, BENCH_CONFIG.batch_size
+    for x_dtype in (torch.float32, torch.bfloat16):
+        x, out0, upd = rep_mode_inputs(n_pad, BENCH_CONFIG.dim, x_dtype, 31,
+                                       dev)
+        sg = bench_samples(fv, x.to(torch.bfloat16), seed=5)
+        for name in SAMPLE_MODELS:
+            m = model_by(name)
+            store, add, apply = rep_modes(
+                m if m.update != "energy" else dataclasses.replace(
+                    m, update="add"), group, x, sg, 0.02, out0, upd)
+            check(torch.equal(add, out0.clone().add_(store))
+                  and torch.equal(apply,
+                                  x.clone().add_(upd.clone().add_(store))),
+                  f"path J {name} X {x_dtype}: add or apply differs from "
+                  "store and the adds")
+    linlog = get_model("linlog")
+    reset_counts()
+    try:
+        fk.grouped_rep_force(linlog, group, x, sg, 0.02, mode="apply",
+                             upd=upd)
+    except ValueError as e:
+        check("energy" in str(e), f"the refusal says: {e}")
+    else:
+        raise RuntimeError("apply with an energy model was not refused")
+    check(not any(read_counts().values()), "a refused call launched")
+
+
+def rep_mode_times(model, x, sg, step, out0, upd, card, what) -> dict:
+    """Each mode at these inputs back to back (CUDA events) and queued
+    ahead of the device, beside its bound (bytes: x read, out read and
+    written for add, upd read and X written for apply, the samples read;
+    f32 operations of the terms) and its plain version."""
+    group = BENCH_CONFIG.batch_size
+    n, dim = x.shape
+    ns = sg.shape[1]
+    xs = x.element_size()
+    rec = {}
+    for mode in fk.REP_MODES:
+        kw = ({"out": out0.clone()} if mode == "add" else
+              {"upd": upd} if mode == "apply" else {})
+        xw = x.clone() if mode == "apply" else x
+
+        def run(plain=False, mode=mode, kw=kw, xw=xw):
+            fn = fk.grouped_rep_force_plain if plain else fk.grouped_rep_force
+            return fn(model, group, xw, sg, step, mode=mode, **kw)
+
+        nbytes = ((2 if mode == "store" else 3) * n * dim * xs
+                  + sg.numel() * sg.element_size())
+        b_ms, by = bound_ms(nbytes, n * ns * term_flops(model, "sample", dim))
+        rec[mode] = dict(
+            ms=cuda_ms(run, reps=20), queued_ms=queued_device_ms(run, reps=20),
+            plain_ms=cuda_ms(lambda: run(plain=True), reps=3),
+            bound_ms=b_ms, bound_by=by, mbytes=nbytes / 1e6)
+        r = rec[mode]
+        say(f"J {what} {mode}: kernel_ms={r['ms']:.4f} queued="
+            f"{r['queued_ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms="
+            f"{b_ms:.4f} ({by}: {nbytes / 1e6:.1f} MB; queued at "
+            f"{b_ms / r['queued_ms']:.0%} of it) [{card}]")
+    return rec
+
+
+def composed_rep(model, group, xi, sg, step, *, mode="store", out=None,
+                 upd=None, real=fk.grouped_rep_force):
+    """``grouped_rep_force`` in ``mode`` composed the way the trainer ran
+    it before the modes: the store launch (``real``, the wrapper even where
+    ``rep_replaced`` stands in for it), then ``out.add_(rep)``, or
+    ``upd.add_(rep); xi.add_(upd)`` (which leaves upd changed)."""
+    rep = real(model, group, xi, sg, step)
+    if mode == "store":
+        return rep
+    if mode == "add":
+        return out.add_(rep)
+    return xi.add_(upd.add_(rep))
+
+
+@contextlib.contextmanager
+def rep_replaced(fn):
+    """``force_kernels.grouped_rep_force`` is ``fn`` inside the block (the
+    trainer looks it up at every call)."""
+    real = fk.grouped_rep_force
+    fk.grouped_rep_force = fn
+    try:
+        yield real
+    finally:
+        fk.grouped_rep_force = real
+
+
+def last_launch(fv, x0, negs, walks, what):
+    """An iteration's ``grouped_rep_force`` call must be its last launch:
+    no launch count moves after the call returns, the host trace shows no
+    torch operation after it (marked by a ``record_function`` range), and
+    the device's last kernel is the repulsion's.  The profiler must record
+    the device's kernels (it does in a fresh process: ``--path J``).
+    Returns (the last kernel's name, kernels)."""
+    at_return = []
+
+    def marked(*args, real=fk.grouped_rep_force, **kw):
+        with torch.profiler.record_function("f2v::grouped_rep_force"):
+            res = real(*args, **kw)
+        at_return.append(read_counts())
+        return res
+
+    torch.cuda.synchronize()
+    with rep_replaced(marked), torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fv.run_iteration(x0.clone(), negs, walks=walks)
+        torch.cuda.synchronize()
+    check(len(at_return) == 1,
+          f"path J {what}: {len(at_return)} repulsion calls")
+    check(read_counts() == at_return[0],
+          f"path J {what}: kernels launched after the repulsion: "
+          f"{read_counts()} against {at_return[0]} at its return")
+    events = prof.events()
+    rep = next(e for e in events if e.name == "f2v::grouped_rep_force")
+    after = [e.name for e in events
+             if e.device_type == torch.autograd.DeviceType.CPU
+             and e.name.startswith("aten::")
+             and e.time_range.start >= rep.time_range.end]
+    check(not after, f"path J {what}: torch operations after the "
+                     f"repulsion: {after}")
+    # (the marker's range shows on the device's timeline too)
+    kernels = sorted((e for e in events
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.name != rep.name
+                      and not e.name.startswith(("Memset", "Memcpy"))),
+                     key=lambda e: e.time_range.start)
+    check(kernels, f"path J {what}: the profiler recorded no device kernel")
+    last = kernels[-1].name
+    check("grouped_rep_force_kernel" in last,
+          f"path J {what}: the iteration's last kernel is {last}")
+    return last, len(kernels)
+
+
+def rep_iteration_check(fv, x0, negs, walks, what):
+    """J3: one iteration in the trainer's repulsion mode against the store
+    launch and the ``add_``s composed from copies of the launch's own
+    operands (the attraction it adds to, X, the samples, the step): bit
+    for bit, and with ``apply`` the iteration's X is the launch's.  An
+    ``apply`` iteration calls no ``add_`` and the repulsion is its last
+    launch (``last_launch``).  Returns the iteration's ``add_`` count."""
+    seen = []
+
+    def spy(model, group, xi, sg, step, *, mode="store", out=None,
+            upd=None, real=fk.grouped_rep_force):
+        ops = [None if t is None else t.clone() for t in (xi, out, upd)]
+        got = real(model, group, xi, sg, step, mode=mode, out=out, upd=upd)
+        seen.append((mode, got.clone(), composed_rep(
+            model, group, ops[0], sg, step, mode=mode, out=ops[1],
+            upd=ops[2])))
+        return got
+
+    with rep_replaced(spy):
+        a = fv.run_iteration(x0.clone(), negs, walks=walks)
+    check(len(seen) == 1 and seen[0][0] == fv.rep_mode,
+          f"path J {what}: repulsion calls {[m for m, *_ in seen]}, the "
+          f"trainer's mode {fv.rep_mode}")
+    _, got, want = seen[0]
+    check(torch.equal(got, want), f"path J {what}: the {fv.rep_mode} launch "
+                                  f"differs from store and the adds by "
+                                  f"{max_err(got, want):.3e}")
+    check(fv.rep_mode != "apply" or torch.equal(a, want),
+          f"path J {what}: the iteration's X is not the apply launch's")
+    adds = count_ops(lambda: fv.run_iteration(x0.clone(), negs, walks=walks),
+                     "aten::add_")
+    if fv.rep_mode == "apply":
+        check(adds == 0, f"path J {what}: an apply iteration calls add_ "
+                         f"{adds} times")
+        last, kernels = last_launch(fv, x0, negs, walks, what)
+        say(f"J3 {what}: the apply launch = store + add_s bit for bit; "
+            f"add_ calls 0; no launch and no torch operation after the "
+            f"repulsion's wrapper; last kernel {last[:80]}; {kernels} "
+            "kernels")
+    else:
+        say(f"J3 {what}: the {fv.rep_mode} launch = store + add_ bit for "
+            f"bit; add_ calls {adds}")
+    return adds
+
+
+def rep_modes_path(graph, dev, card):
+    """Path J: ``grouped_rep_force``'s store, add and apply modes.  Returns
+    (the record, the launch counts of its training runs)."""
+    t0 = time.perf_counter()
+    fv = SyncForce2Vec(graph, BENCH_CONFIG, MIN_WIDTH, HUB_WIDTH, device=dev)
+    rec = {"J1": {}, "faults": {}, "chunked": {}}
+    for dim in J_DIMS:
+        for x_dtype, sg_dtype in J_DTYPES:
+            key = f"{dim} {str(x_dtype)[6:]} {str(sg_dtype)[6:]}"
+            rec["J1"][key], caught = rep_mode_check(
+                fv, dim, x_dtype, sg_dtype, dev, dim in J_FAULT_DIMS)
+            if caught:
+                rec["faults"][key] = caught
+        if dim * 4 * G_MANY_SAMPLES > fk._MAX_SAMPLE_BYTES:
+            for x_dtype in (torch.float32, torch.bfloat16):
+                rec["chunked"][f"{dim} {str(x_dtype)[6:]}"] = (
+                    rep_chunked_check(fv, dim, x_dtype, dev))
+    rep_models_check(fv, dev)
+    worst = {m: max(r[m] for r in rec["J1"].values()) for m in fk.REP_MODES}
+    say(f"J1 every row class, both X dtypes: worst bound ratios {worst}; "
+        f"planted faults {rec['faults']}; chunked {rec['chunked']} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    ng = -(-fv.layout.n_pad // BENCH_CONFIG.batch_size)
+    negs = torch.as_tensor(np.random.default_rng(7).integers(
+        0, graph.n - 1, size=(ng, BENCH_CONFIG.ns)).astype(np.int32),
+        device=dev)
+    rw_cfg = dataclasses.replace(BENCH_CONFIG, model="rwalk")
+    for what, cfg, mode in (
+            ("main f32 X", BENCH_CONFIG, "apply"),
+            ("main bf16 X", I_CONFIG, "apply"),
+            ("rwalk", rw_cfg, "apply"),
+            ("linlog", dataclasses.replace(BENCH_CONFIG, model="linlog"),
+             "add")):
+        fv_j = SyncForce2Vec(graph, cfg, MIN_WIDTH, HUB_WIDTH, device=dev)
+        check(fv_j.rep_mode == mode,
+              f"path J {what}: the trainer runs {fv_j.rep_mode}, not {mode}")
+        walks = (fv_j.draw_walks(torch.Generator(dev).manual_seed(13))
+                 if cfg.model == "rwalk" else None)
+        rec[f"J3 {what} add_ calls"] = rep_iteration_check(
+            fv_j, fv_j.init_embedding(seed=1), negs, walks, what)
+    dp = SyncForce2Vec(graph, BENCH_CONFIG, MIN_WIDTH, HUB_WIDTH, device=dev,
+                       spmd=SpmdAxes(n_dp=2, dp_index=0))
+    check(dp.rep_mode == "store", f"path J: dp runs {dp.rep_mode}")
+    say(f"J3 ({time.perf_counter() - t0:.1f} s); dp stores")
+
+    t0 = time.perf_counter()
+    counts = {}
+    for what, cfg, margin, stat in (
+            ("main f32 X", BENCH_CONFIG, QUALITY_MARGIN, "dist"),
+            ("main bf16 X", I_CONFIG, 0.5 * JAX_TDIST_X_BF16_GAP, "dist"),
+            ("rwalk", rw_cfg, RWALK_DOT_MARGIN, "dot")):
+        run = SyncForce2Vec(graph, cfg, MIN_WIDTH, HUB_WIDTH, device=dev)
+        emb, c = train_phase(run, {"ell_edge_force": TRAIN_ITERS,
+                                   "grouped_rep_force": TRAIN_ITERS}, card)
+        add_counts(counts, c)
+        q = quality(graph, emb.float())
+        gap = (q["d_rand"] - q["d_edge"] if stat == "dist"
+               else q["dot_edge"] - q["dot_rand"])
+        say(f"J4 {what} ({run.rep_mode}) after {TRAIN_ITERS} iterations: "
+            f"{stat} gap {gap:.4f} (needs > {margin:.4f})")
+        check(gap > margin, f"path J {what}: gap {gap:.4f} <= {margin:.4f}")
+        rec[f"J4 {what} gap"] = gap
+    say(f"J4 ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    tdist = get_model("tdist")
+    n_pad = fv.layout.n_pad
+    rec["J5"], rec["J5 classes"] = {}, {}
+    for x_dtype in (torch.float32, torch.bfloat16):
+        x, out0, upd = rep_mode_inputs(n_pad, BENCH_CONFIG.dim, x_dtype, 41,
+                                       dev)
+        sg = bench_samples(fv, x.to(torch.bfloat16), seed=5)
+        rec["J5"][str(x_dtype)[6:]] = rep_mode_times(
+            tdist, x, sg, fv.lr, out0, upd, card,
+            f"bench shape X {str(x_dtype)[6:]}")
+        for dim in J_DIMS:
+            x, out0, upd = rep_mode_inputs(n_pad, dim, x_dtype, 43, dev)
+            sg = bench_samples(fv, x.to(torch.bfloat16), seed=5)
+            times = {}
+            for mode in ("store", "apply"):
+                kw = {"upd": upd} if mode == "apply" else {}
+                xw = x.clone()
+                nbytes = ((2 if mode == "store" else 3) * x.numel()
+                          * x.element_size() + sg.numel() * sg.element_size())
+                times[mode] = [queued_device_ms(
+                    lambda: fk.grouped_rep_force(
+                        tdist, BENCH_CONFIG.batch_size, xw, sg, 0.02,
+                        mode=mode, **kw), reps=20),
+                    bound_ms(nbytes, n_pad * BENCH_CONFIG.ns
+                             * term_flops(tdist, "sample", dim))[0]]
+            rec["J5 classes"][f"{dim} {str(x_dtype)[6:]}"] = times
+            say(f"J5 dim {dim} ({row_class(dim, x_dtype)}) X "
+                f"{str(x_dtype)[6:]}: store queued {times['store'][0]:.4f} "
+                f"bound {times['store'][1]:.4f}; apply queued "
+                f"{times['apply'][0]:.4f} bound {times['apply'][1]:.4f} "
+                f"[{card}]")
+    # main's iteration with the sequence before the modes (the store
+    # launch, then the add_s: composed_rep) and with apply, queued, in turns
+    for what, cfg in (("f32 X", BENCH_CONFIG), ("bf16 X", I_CONFIG)):
+        run = SyncForce2Vec(graph, cfg, MIN_WIDTH, HUB_WIDTH, device=dev)
+        x = run.init_embedding(seed=1)
+        times = {"store": [], "apply": []}
+        for m in ("store", "apply", "apply", "store"):
+            with (rep_replaced(composed_rep) if m == "store"
+                  else contextlib.nullcontext()):
+                times[m].append(queued_device_ms(
+                    lambda: run.run_iteration(x, negs), reps=10))
+        rec[f"J5 main {what} queued"] = times
+        say(f"J5 main {what}, queued ms/iteration in turns: store + add_s "
+            f"{times['store']}, apply {times['apply']} [{card}]")
+    say(f"J5 ({time.perf_counter() - t0:.1f} s)")
+    return rec, counts
+
+
+def path_j_process():
+    """Path J as ``--path J`` in a fresh process: in a process that has
+    run the other paths the profiler records no device kernel, and J3
+    reads them.  Echoes its J lines; returns (its record, its launch
+    counts)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--path", "J"], capture_output=True, text=True,
+                         timeout=600)
+    lines = res.stdout.splitlines()
+    for line in lines:
+        if line.startswith(("J", "path J")):
+            say(line)
+    check(res.returncode == 0,
+          f"path J exited {res.returncode}: {res.stderr[-4000:]}")
+    rec = json.loads(lines[-2])
+    return rec["rep_modes"], rec["path_J_launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check needs the card",
@@ -3959,6 +4484,15 @@ def main() -> int:
                        f"{missing}")
 
     graph = synth_powerlaw_graph()
+    if sys.argv[1:] == ["--path", "J"]:
+        t0 = time.perf_counter()
+        rec, counts = rep_modes_path(graph, dev, card)
+        say(f"path J (repulsion modes): {time.perf_counter() - t0:.1f} s")
+        say(json.dumps({"path_J_launches": counts, "rep_modes": rec}))
+        say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if sys.argv[1:] == ["--path", "I"]:
         t0 = time.perf_counter()
         rec, counts, timing = x_bf16_path(graph, dev, card)
@@ -4036,6 +4570,10 @@ def main() -> int:
     t0 = time.perf_counter()
     x_bf16, counts_bf16, x_bf16_timing = x_bf16_path(graph, dev, card)
     say(f"path I (bf16 X): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rep["modes"], counts_modes = path_j_process()
+    say(f"path J (repulsion modes, --path J): "
+        f"{time.perf_counter() - t0:.1f} s")
     timing = {str(k): v for k, v in x_bf16_timing.items()}
     say(f"bf16 X timing: {json.dumps(timing)} [{card}]")
     say(f"batch schedule (bench graph, -batch 256 -dim 128): "
@@ -4046,7 +4584,7 @@ def main() -> int:
              "file": counts_file, "cli": counts_cli,
              "vertex": counts_vertex, "dp": counts_dp, "tp": counts_tp,
              "widths": counts_widths, "split": counts_split,
-             "x_bf16": counts_bf16}
+             "x_bf16": counts_bf16, "rep_modes": counts_modes}
     for name, m in (("ell_edge_force", edge), ("grouped_rep_force", rep),
                     ("ell_sample_force", sample)):
         (m["queued_ms_dim64"], m["bound_ms_dim64"],

@@ -38,10 +38,11 @@ _SIGNATURES = {
     # [n_entries, 5] int64), n_entries, dim, model, stream
     "f2v_ell_edge_force": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _F, _P, _I,
                            _P, _I, _I, _I, _P),
-    # xi, sg, sg_is_bf16, xi_is_bf16 (xi and out bf16), sm_table, step, out,
-    # rows, group, ns, dim, model, stream
-    "f2v_grouped_rep_force": (_P, _P, _I, _I, _P, _F, _P, _I, _I, _I, _I,
-                              _I, _P),
+    # xi, sg, sg_is_bf16, xi_is_bf16 (xi, out and upd bf16), sm_table, step,
+    # out, upd, part (f32 scratch of a chunked sum), mode (0 store, 1 add,
+    # 2 apply), rows, group, ns, dim, model, stream
+    "f2v_grouped_rep_force": (_P, _P, _I, _I, _P, _F, _P, _P, _P, _I, _I,
+                              _I, _I, _I, _I, _P),
     # x, xg, xg_is_bf16, x_is_bf16 (x and out bf16), idx, deg, xi_row,
     # sm_table, step, out, accumulate, rows, width, dim, model, stream
     "f2v_ell_sample_force": (_P, _P, _I, _I, _P, _P, _P, _P, _F, _P, _I, _I,

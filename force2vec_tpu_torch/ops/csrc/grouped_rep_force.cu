@@ -1,32 +1,55 @@
-// Repulsion from group-shared negative samples.
+// Repulsion from group-shared negative samples, with the update's last
+// passes folded into the same launch.
 //
 // Replaces force2vec_tpu/ops/pallas_force.py::grouped_rep_force.  Row r
 // belongs to group r / group, and every row of a group repels from the
 // same ns sample rows:
-//   out[r] = sum_{s < ns} sample_force(xi[r], sg[r / group, s], step)
-// xi and out are in X's type (f32, or bf16 with the samples gathered from
-// X itself: the kXBf16 instances; the sums are f32, rounded once at the
-// store); the samples come from the (bf16 or f32) gather replica.  Rows
-// are any multiple of 8 wide up to kMaxDim; the sigmoid comes exact or from
-// the reference's lookup table (kSigmoidTableRep).
+//   rep[r] = sum_{s < ns} sample_force(xi[r], sg[r / group, s], step)
+// summed over s in order in f32 and rounded once to X's type (f32, or bf16
+// with the samples gathered from X itself: the kXBf16 instances).  Rows are
+// any multiple of 8 wide up to kMaxDim; the sigmoid comes exact or from the
+// reference's lookup table (kSigmoidTableRep).  Three output modes, a
+// runtime flag of one set of instances:
+//   store: out[r] = rep[r];
+//   add:   out[r] = out[r] + rep[r], rep rounded to X's type first
+//          (common.cuh::store_or_add): out.add_(rep) of a store, bit for
+//          bit;
+//   apply: X[r] = X[r] + (upd[r] + rep[r]) in place (xi is X), rep and
+//          upd + rep each rounded to X's type first: upd.add_(rep) then
+//          x.add_(upd) of a store, bit for bit (the JAX iteration's
+//          x + (upd + rep)), and upd left as it was.  Each element of X is
+//          read and written by one thread, its read before its write; the
+//          samples are a copy gathered before the launch.
 //
-// What bounds it: streaming xi in and out, 2 x 64 MB of f32 per iteration
-// at the bench shape (131,072 x 128), 2 x 32 MB with X in bf16; the
-// samples are 640 KB of bf16.
+// What bounds it: by its bytes, memory.  At the bench shape (131,072 x
+// 128) store reads xi and writes out, 2 x 33.6 MB with X in bf16 (0.020 ms
+// at 3.35 TB/s), 2 x 67.1 MB in f32; add and apply read a second [rows, D]
+// operand (out, or upd) as well; the samples are 655 KB.  Its f32
+// arithmetic (ns samples' distance, coefficient and terms a row) is of the
+// same order as the bytes: warps in flight, not stages in shared memory,
+// hide its latencies (PERF.md §9.6).
 //
 // Design, the TPU kernel's own idea: the [rows, ns, D] expand of the group
-// samples never touches device memory.  A block owns up to 4 rounds of
-// rows of one group, copies that group's [ns, D] block into shared memory
-// as f32 once (2.5 KB at ns 5, dim 128), and each group of lanes computes
-// whole rows from it: the f32 row classes of common.cuh (RowClass<float>:
-// one row a warp, a 16-byte piece a lane, at dim 128; two rows a warp at
-// dim 64; a warp with 8 pieces a lane at dim 1024), whatever X's type (a
-// bf16 X reads and writes 8 bytes of each piece's 4 elements).  Samples past
-// kMaxSampleBytes of shared memory (ns > 12 at dim 1024) go in chunks, a
-// launch each, the later ones adding into what the last stored, so every
-// ns fits and the sum runs over s in order either way (with a bf16 X each
-// later chunk adds into the rounded sum before it).  Nothing carries across
-// blocks.
+// samples never touches device memory.  A block owns up to kRounds rounds
+// of rows of one group, copies that group's [ns, D] block into shared
+// memory as f32 once (2.5 KB at ns 5, dim 128; 16-byte loads, a bf16 sg
+// widened on the way), and each group of lanes computes whole rows from
+// it in the row classes of X's type (common.cuh::with_row_class: at dim
+// 128 a bf16 row is 16 lanes of one 16-byte piece, two rows a warp; an f32
+// row 32 lanes of one).  A lane loads its pieces of x_i, sums the samples
+// in order, and writes by the mode: the store, or out's or upd's pieces
+// loaded then and added.  Many small blocks keep the SM's warp slots full
+// (8 blocks of 8 warps at 32 registers for tdist and the layout family at
+// four f32 a lane).  Tried on an H100 and dropped (PERF.md §9.6): a
+// persistent design with the row tiles streamed through a 4-stage
+// cp.async.bulk ring by a producer warp and 4 consumer warps (20-24 warps
+// an SM; slower in store, no faster in apply).
+//
+// Samples past kMaxSampleBytes of f32 (ns > 12 at dim 1024) go in chunks,
+// a launch each: each chunk before the last leaves its rows' f32 sums in
+// an f32 scratch ``part`` (no rounding), the next continues them in order,
+// and the last applies the mode.  So a chunked sum rounds exactly as an
+// unchunked one, in every mode.  Nothing carries across blocks.
 
 #include "common.cuh"
 
@@ -35,58 +58,79 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr int kRounds = 4;  // rounds of rows a block (32 rows at a row a warp)
-// shared memory of samples a launch (force_kernels._MAX_SAMPLE_BYTES)
+// shared memory of f32 samples a launch (force_kernels._MAX_SAMPLE_BYTES)
 constexpr int kMaxSampleBytes = 48 * 1024;
 
+enum RepMode { kStoreMode = 0, kAddMode = 1, kApplyMode = 2 };
+
 struct RepArgs {
-  const void* xi;         // [rows, dim], X's type (kXBf16: bf16, else f32)
+  const void* xi;         // [rows, dim], X's type; apply: X itself
   const void* sg;         // [ng, ns, dim], bf16 or f32
   const float* sm_table;  // [2048] sigmoid table; read only by table models
+  const void* upd;        // apply: [rows, dim], X's type
+  void* out;              // [rows, dim], X's type; apply: X (== xi)
+  float* part;            // [rows, dim] f32 sums between chunks, or null
   float step;
-  void* out;              // [rows, dim], X's type
   int rows;
   int group;
   int ns;
   int dim;
-  int c0;   // this launch's samples: [c0, c0 + cn) of each group's ns
-  int cn;
-  int add;  // add into out (a later chunk of samples) instead of storing
-  int tiles_per_group;
+  int mode;      // RepMode, applied by the last chunk
   int sg_is_bf16;
+  int c0;        // this launch's samples: [c0, c0 + cn) of each group's ns
+  int cn;
+  int part_in;   // continue the f32 sums in part (a chunk after the first)
+  int part_out;  // leave the f32 sums in part (a chunk before the last)
+  int tiles_per_group;
 };
 
-// samples[0, cn·dim) = f32 of group g's samples [c0, c0 + cn).
+// samples[0, cn·dim) = f32 of group g's samples [c0, c0 + cn), a 16-byte
+// piece of sg at a time (dim is a multiple of 8, so every piece is whole).
 __device__ __forceinline__ void fill_samples(const RepArgs& p, float* samples,
-                                             int64_t g, int c0, int cn) {
-  const int64_t src = (g * p.ns + c0) * int64_t(p.dim);
-  const int count = cn * p.dim;
+                                             int64_t g) {
+  const int64_t src = (g * p.ns + p.c0) * int64_t(p.dim);
+  const int count = p.cn * p.dim;
   if (p.sg_is_bf16) {
     const __nv_bfloat16* sg = static_cast<const __nv_bfloat16*>(p.sg) + src;
-    for (int e = threadIdx.x; e < count; e += blockDim.x) {
-      samples[e] = to_f32(sg[e]);
+    for (int e = threadIdx.x * 8; e < count; e += blockDim.x * 8) {
+      float v[8];
+      load_row<__nv_bfloat16, 8>(sg + e, v);
+      store_row<8>(samples + e, v);
     }
   } else {
     const float* sg = static_cast<const float*>(p.sg) + src;
-    for (int e = threadIdx.x; e < count; e += blockDim.x) samples[e] = sg[e];
+    for (int e = threadIdx.x * 4; e < count; e += blockDim.x * 4) {
+      float v[4];
+      load_row<float, 4>(sg + e, v);
+      store_row<4>(samples + e, v);
+    }
   }
 }
 
 // The rows [warp_first + k·rounds, hi) of one group against the cn samples
-// in shared memory: each warp's rows start together, so that all its lanes
-// take part in every group sum (a lane past the last row computes on
-// zeros).  ``add``: add into the rows an earlier chunk of samples stored.
+// in shared memory, then the mode's write: each warp's rows start
+// together, so that all its lanes take part in every group sum (a lane
+// past the last row computes on zeros and writes nothing).
 template <bool kXBf16, int G, int P, bool kFull, int M>
 __device__ __forceinline__ void rep_rows(const RepArgs& p,
                                          const float* samples,
-                                         int warp_first, int hi,
-                                         int cn, bool add) {
-  using RC = RowClass<float, G, P, kFull>;
-  using F = SampleForce<M>;
+                                         int warp_first, int hi) {
   using TX = XElem<kXBf16>;
+  using RC = RowClass<TX, G, P, kFull>;
+  using F = SampleForce<M>;
   const TX* xs = static_cast<const TX*>(p.xi);
   TX* out = static_cast<TX*>(p.out);
-  constexpr int E = RC::E;  // f32 elements a 16-byte piece
+  // add: out's row; apply: upd's
+  const TX* second = static_cast<const TX*>(
+      p.mode == kApplyMode ? p.upd : static_cast<const void*>(p.out));
+  constexpr int E = RC::E;  // elements a 16-byte piece: 8 bf16 or 4 f32
   constexpr int kRowsPerRound = kWarpsPerBlock * (32 / G);
+  // up to 8 elements a lane the sample's pieces stay in registers between
+  // the scalar and the terms; more, they are read from shared memory twice
+  // (held, 8 f32 pieces a lane spilled, and so did the 32-lane f32 row
+  // that fills its class, in the 32 registers of 8 blocks an SM)
+  constexpr bool kHold =
+      P * E <= 8 && !(E == 4 && P == 1 && G == 32 && kFull);
   const int64_t dim = kFull ? RC::D : p.dim;
   const int lane = threadIdx.x & 31;
   const int gl = lane % G;
@@ -102,8 +146,8 @@ __device__ __forceinline__ void rep_rows(const RepArgs& p,
       const int64_t off = int64_t(r) * dim + (c * G + gl) * E;
       if (live && (kFull || c * G < mine)) {
         load_row<TX, E>(xs + off, xi[c]);
-        if (add) {
-          load_row<TX, E>(out + off, acc[c]);
+        if (p.part_in) {
+          load_row<float, E>(p.part + off, acc[c]);
         } else {
 #pragma unroll
           for (int v = 0; v < E; ++v) acc[c][v] = 0.0f;
@@ -113,11 +157,7 @@ __device__ __forceinline__ void rep_rows(const RepArgs& p,
         for (int v = 0; v < E; ++v) xi[c][v] = acc[c][v] = 0.0f;
       }
     }
-    for (int s = 0; s < cn; ++s) {
-      // up to 2 pieces a lane the sample's pieces stay in registers
-      // between the scalar and the terms; wider, they are read from
-      // shared memory twice (held, 8 pieces a lane spilled)
-      constexpr bool kHold = P <= 2;
+    for (int s = 0; s < p.cn; ++s) {
       const float* sp = samples + s * dim;
       float sv[kHold ? P : 1][E];
       float part = 0.0f;
@@ -153,30 +193,48 @@ __device__ __forceinline__ void rep_rows(const RepArgs& p,
         }
       }
     }
+    if (!live) continue;
 #pragma unroll
     for (int c = 0; c < P; ++c) {
-      if (live && (kFull || c * G < mine)) {
-        store_x<TX, E>(out + int64_t(r) * dim + (c * G + gl) * E, acc[c]);
+      if (!(kFull || c * G < mine)) continue;
+      const int64_t off = int64_t(r) * dim + (c * G + gl) * E;
+      if (p.part_out) {
+        store_row<E>(p.part + off, acc[c]);
+      } else if (p.mode == kStoreMode) {
+        store_x<TX, E>(out + off, acc[c]);
+      } else {
+        float o[E];
+        load_row<TX, E>(second + off, o);
+#pragma unroll
+        for (int v = 0; v < E; ++v) {
+          const float sum = __fadd_rn(o[v], round_to<TX>(acc[c][v]));
+          o[v] = p.mode == kAddMode ? sum
+                                    : __fadd_rn(xi[c][v], round_to<TX>(sum));
+        }
+        store_x<TX, E>(out + off, o);
       }
     }
   }
 }
 
-// One piece a lane streams x_i in and out with little arithmetic: 8 blocks
-// an SM (32 registers, every warp slot of the SM) keep enough loads in
+// Four f32 a lane stream x_i in and out with little arithmetic: 8 blocks an
+// SM (32 registers, every warp slot of the SM) keep enough loads in
 // flight; left to choose, the compiler took 40 registers (6 blocks), and
 // tdist at dim 128 ran 8% slower on an H100.  The sigmoid family's exact
-// and table σ need more registers than 32 hold and keep the default.
+// and table σ need more registers than 32 hold, and so do eight elements a
+// lane (a bf16 piece, two f32 ones): they keep the compiler's choice.
 template <int M>
-constexpr int kRepMinBlocks(int pieces) {
-  return pieces == 1 && (M == kTdistRep || M == kLayoutRep) ? 8 : 1;
+constexpr int kRepMinBlocks(int elements) {
+  return elements == 4 && (M == kTdistRep || M == kLayoutRep) ? 8 : 1;
 }
 
 template <bool kXBf16, int G, int P, bool kFull, int M>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32, kRepMinBlocks<M>(P))
+__global__ void __launch_bounds__(
+    kWarpsPerBlock * 32,
+    kRepMinBlocks<M>(P * RowClass<XElem<kXBf16>, G, P, kFull>::E))
     grouped_rep_force_kernel(const RepArgs p) {
   constexpr int kRowsPerBlock = kRounds * kWarpsPerBlock * (32 / G);
-  extern __shared__ float4 smem[];  // [chunk, dim] of this block's group
+  extern __shared__ float4 smem[];  // [cn, dim] of this block's group
   float* samples = reinterpret_cast<float*>(smem);
   const int g = blockIdx.x / p.tiles_per_group;
   const int tile = blockIdx.x % p.tiles_per_group;
@@ -190,46 +248,51 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32, kRepMinBlocks<M>(P))
   if (lo >= end) return;  // the whole block: no row of this group left
   const int hi = int(end);
   const int warp_first = int(lo) + (threadIdx.x >> 5) * (32 / G);
-  fill_samples(p, samples, g, p.c0, p.cn);
+  fill_samples(p, samples, g);
   __syncthreads();
-  rep_rows<kXBf16, G, P, kFull, M>(p, samples, warp_first, hi, p.cn,
-                                   p.add != 0);
+  rep_rows<kXBf16, G, P, kFull, M>(p, samples, warp_first, hi);
 }
 
-// One launch, or with more samples than kMaxSampleBytes of shared memory
-// holds one launch a chunk of them, each later one adding into the rows the
-// last stored (the sum still runs over the samples in order).
+// The instance for `model`, or null.
 template <bool kXBf16, int G, int P, bool kFull>
-cudaError_t launch(int model, RepArgs p, int groups, cudaStream_t s) {
-  constexpr int kRowsPerBlock = kRounds * kWarpsPerBlock * (32 / G);
-  p.tiles_per_group = (p.group + kRowsPerBlock - 1) / kRowsPerBlock;
-  const int64_t blocks = int64_t(groups) * p.tiles_per_group;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  void (*kernel)(RepArgs) = nullptr;
+void (*kernel_for(int model))(RepArgs) {
   switch (model) {
     case kTdistRep:
-      kernel = grouped_rep_force_kernel<kXBf16, G, P, kFull, kTdistRep>;
-      break;
+      return grouped_rep_force_kernel<kXBf16, G, P, kFull, kTdistRep>;
     case kSigmoidRep:
-      kernel = grouped_rep_force_kernel<kXBf16, G, P, kFull, kSigmoidRep>;
-      break;
+      return grouped_rep_force_kernel<kXBf16, G, P, kFull, kSigmoidRep>;
     case kLayoutRep:
-      kernel = grouped_rep_force_kernel<kXBf16, G, P, kFull, kLayoutRep>;
-      break;
+      return grouped_rep_force_kernel<kXBf16, G, P, kFull, kLayoutRep>;
     case kSigmoidTableRep:
-      if (p.sm_table == nullptr) return cudaErrorInvalidValue;
-      kernel = grouped_rep_force_kernel<kXBf16, G, P, kFull, kSigmoidTableRep>;
-      break;
+      return grouped_rep_force_kernel<kXBf16, G, P, kFull, kSigmoidTableRep>;
     default:
-      return cudaErrorInvalidValue;
+      return nullptr;
+  }
+}
+
+// One launch, or with more samples than kMaxSampleBytes of f32 holds one a
+// chunk of them, the f32 sums passed on in p.part.
+template <bool kXBf16, int G, int P, bool kFull>
+cudaError_t launch(int model, RepArgs p, cudaStream_t s) {
+  void (*kernel)(RepArgs) = kernel_for<kXBf16, G, P, kFull>(model);
+  if (kernel == nullptr ||
+      (model == kSigmoidTableRep && p.sm_table == nullptr)) {
+    return cudaErrorInvalidValue;
   }
   const int chunk = kMaxSampleBytes / (p.dim * int(sizeof(float)));
-  const size_t smem =
-      size_t(p.ns < chunk ? p.ns : chunk) * p.dim * sizeof(float);
+  if (p.ns > chunk && p.part == nullptr) return cudaErrorInvalidValue;
+  constexpr int kRowsPerBlock = kRounds * kWarpsPerBlock * (32 / G);
+  const int span = p.group < p.rows ? p.group : p.rows;
+  p.tiles_per_group = (span + kRowsPerBlock - 1) / kRowsPerBlock;
+  const int64_t blocks =
+      int64_t((p.rows + p.group - 1) / p.group) * p.tiles_per_group;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
   for (int c0 = 0; c0 < p.ns; c0 += chunk) {
     p.c0 = c0;
     p.cn = p.ns - c0 < chunk ? p.ns - c0 : chunk;
-    p.add = c0 > 0;
+    p.part_in = c0 > 0;
+    p.part_out = c0 + p.cn < p.ns;
+    const size_t smem = size_t(p.cn) * p.dim * sizeof(float);
     kernel<<<dim3(static_cast<unsigned>(blocks)), kWarpsPerBlock * 32, smem,
              s>>>(p);
     const cudaError_t err = cudaGetLastError();
@@ -241,42 +304,49 @@ cudaError_t launch(int model, RepArgs p, int groups, cudaStream_t s) {
 }  // namespace
 }  // namespace f2v
 
-// sm_table: the device's [2048] f32 sigmoid table for kSigmoidTableRep,
-// else unused (may be null).  xi_is_bf16: xi and out are bf16 (then sg
-// must be bf16 too), else f32.
+// mode: 0 store (into out), 1 add (into out), 2 apply (xi is X, out must
+// be xi, upd the update).  sm_table: the device's [2048] f32 sigmoid table
+// for kSigmoidTableRep, else unused (may be null).  xi_is_bf16: xi, out and
+// upd are bf16 (then sg must be bf16 too), else f32.  part: an f32 [rows,
+// dim] scratch when ns · dim · 4 passes kMaxSampleBytes, else unused.
 extern "C" int f2v_grouped_rep_force(const void* xi, const void* sg,
                                      int sg_is_bf16, int xi_is_bf16,
                                      const void* sm_table, float step,
-                                     void* out, int rows, int group, int ns,
+                                     void* out, const void* upd, void* part,
+                                     int mode, int rows, int group, int ns,
                                      int dim, int model, void* stream) {
   if (rows <= 0) return cudaSuccess;
   if (group <= 0 || ns <= 0 || dim < f2v::kRowAlign || dim > f2v::kMaxDim ||
-      (xi_is_bf16 && !sg_is_bf16)) {
+      dim % f2v::kRowAlign != 0 || (xi_is_bf16 && !sg_is_bf16) ||
+      mode < f2v::kStoreMode || mode > f2v::kApplyMode ||
+      (mode == f2v::kApplyMode && (upd == nullptr || out != xi))) {
     return cudaErrorInvalidValue;
   }
-  const f2v::RepArgs p{xi,
-                       sg,
-                       static_cast<const float*>(sm_table),
-                       step,
-                       out,
-                       rows,
-                       group,
-                       ns,
-                       dim,
-                       0,
-                       ns,
-                       0,
-                       0,
-                       sg_is_bf16 != 0};
-  const int groups = (rows + group - 1) / group;
+  f2v::RepArgs p{};
+  p.xi = xi;
+  p.sg = sg;
+  p.sm_table = static_cast<const float*>(sm_table);
+  p.upd = upd;
+  p.out = out;
+  p.part = static_cast<float*>(part);
+  p.step = step;
+  p.rows = rows;
+  p.group = group;
+  p.ns = ns;
+  p.dim = dim;
+  p.mode = mode;
+  p.sg_is_bf16 = sg_is_bf16 != 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the f32 row classes: the samples and x_i are f32 in the kernel
-  return f2v::with_row_class<float>(dim, [&](auto rc) {
-    using RC = decltype(rc);
-    return xi_is_bf16
-               ? f2v::launch<true, RC::G, RC::P, RC::kFull>(model, p, groups,
-                                                            s)
-               : f2v::launch<false, RC::G, RC::P, RC::kFull>(model, p,
-                                                             groups, s);
-  });
+  // X's type picks the row classes: 16-byte pieces of 8 bf16 or 4 f32
+  return xi_is_bf16
+             ? f2v::with_row_class<__nv_bfloat16>(dim, [&](auto rc) {
+                 using RC = decltype(rc);
+                 return f2v::launch<true, RC::G, RC::P, RC::kFull>(model, p,
+                                                                   s);
+               })
+             : f2v::with_row_class<float>(dim, [&](auto rc) {
+                 using RC = decltype(rc);
+                 return f2v::launch<false, RC::G, RC::P, RC::kFull>(model, p,
+                                                                    s);
+               });
 }

@@ -8,7 +8,9 @@ The counterpart of ``force2vec_tpu/ops/pallas_force.py``:
   ``ell_edge_force_table`` runs the same kernel over a whole layout's
   buckets (an ``EdgeWorkTable``) in one launch;
 * ``grouped_rep_force`` (``csrc/grouped_rep_force.cu``): the repulsion
-  from group-shared negatives; it replaces ``grouped_rep_force``;
+  from group-shared negatives, stored, added into the update, or applied
+  to X with the update in the same pass (``REP_MODES``); it replaces
+  ``grouped_rep_force``;
 * ``ell_sample_force`` (``csrc/ell_sample_force.cu``): the repulsion from
   per-row negatives (``-bs 1``); it replaces ``ell_force`` with kind
   ``sample``;
@@ -93,6 +95,9 @@ _MAX_ENTRIES = 64  # csrc/common.cuh::kMaxEntries
 # shared memory of f32 samples a grouped_rep_force launch holds
 # (csrc/grouped_rep_force.cu::kMaxSampleBytes): more take a launch a chunk
 _MAX_SAMPLE_BYTES = 48 * 1024
+# grouped_rep_force's output modes (csrc/grouped_rep_force.cu::RepMode):
+# store rep, add it into out, apply X += upd + rep in place
+REP_MODES = ("store", "add", "apply")
 
 
 def reset_launch_counts() -> None:
@@ -450,25 +455,66 @@ def grouped_rep_force_terms(model: ForceModel, group: int, xi, sg,
     return model.sample_force(xi.float()[:, None, :], s, step)
 
 
-def grouped_rep_force_plain(model: ForceModel, group: int, xi, sg,
-                            step) -> torch.Tensor:
-    """out[r] = Σ_s sample_force(xi[r], sg[r // group, s]): the group
+def _check_rep_mode(model: ForceModel, mode: str, xi, out, upd) -> None:
+    """The operands ``mode`` reads: ``out`` for ``add``, ``upd`` for
+    ``apply`` (X's update; xi is X itself), each ``[C, D]`` of xi's dtype
+    on its device, and neither where the mode does not read it.  ``apply``
+    is refused with an energy model, whose update is normalised between the
+    repulsion and X."""
+    _require(mode in REP_MODES, f"mode {mode!r} not in {REP_MODES}")
+    _require(not (mode == "apply" and model.update == "energy"),
+             f"mode 'apply' adds the update into X, but {model.name}'s "
+             "energy update normalises it first: use mode 'add'")
+    for name, t, reads in (("out", out, mode == "add"),
+                           ("upd", upd, mode == "apply")):
+        _require((t is not None) == reads,
+                 f"mode {mode!r} {'needs' if reads else 'takes no'} {name}")
+        if reads:
+            _check(name, t, (xi.dtype,), 2, xi.device)
+            _require(t.shape == xi.shape,
+                     f"{name} {tuple(t.shape)} != xi {tuple(xi.shape)}")
+
+
+def grouped_rep_force_plain(model: ForceModel, group: int, xi, sg, step, *,
+                            mode: str = "store",
+                            out: Optional[torch.Tensor] = None,
+                            upd: Optional[torch.Tensor] = None):
+    """rep[r] = Σ_s sample_force(xi[r], sg[r // group, s]): the group
     expand, the model's sample force in f32 and a sum over ns, rounded to
-    xi's dtype."""
-    return grouped_rep_force_terms(model, group, xi, sg,
-                                   step).sum(dim=1).to(xi.dtype)
+    xi's dtype.  ``store``: returns rep; ``add``: ``out.add_(rep)``,
+    returns out; ``apply``: ``xi.add_(upd + rep)`` in place (xi is X, each
+    add rounded to its dtype, as ``upd.add_(rep); x.add_(upd)`` rounds,
+    with upd left as it was), returns xi."""
+    _check_rep_mode(model, mode, xi, out, upd)
+    rep = grouped_rep_force_terms(model, group, xi, sg,
+                                  step).sum(dim=1).to(xi.dtype)
+    if mode == "store":
+        return rep
+    if mode == "add":
+        return out.add_(rep)
+    return xi.add_(upd + rep)
 
 
-def grouped_rep_force(model: ForceModel, group: int, xi, sg,
-                      step) -> torch.Tensor:
+def grouped_rep_force(model: ForceModel, group: int, xi, sg, step, *,
+                      mode: str = "store", out: Optional[torch.Tensor] = None,
+                      upd: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Grouped-negative repulsion with the group expand kept on chip.
 
     xi [C, D] f32 or bf16, row r in group r // group; sg [ng, ns, D] bf16
     or f32 (bf16 with a bf16 xi) per-group sample rows, ng ≥ ceil(C /
-    group); step a float.  Returns [C, D] of xi's dtype.  One launch, or
-    one a chunk of samples where ns·D f32 pass ``_MAX_SAMPLE_BYTES`` (ns >
-    12 at D = 1024); each later chunk adds into the rows the last stored,
-    so with a bf16 xi each chunk's sum is rounded once more.
+    group); step a float.  rep, the f32 sum over the samples rounded to
+    xi's dtype, goes out by ``mode`` (``REP_MODES``):
+
+    * ``store``: returns rep, a new [C, D] tensor of xi's dtype;
+    * ``add``: adds rep into ``out`` [C, D] (``out.add_(rep)`` bit for
+      bit); returns out;
+    * ``apply``: xi is X; X ← X + (upd + rep) in place, ``upd`` [C, D]
+      its update (``upd.add_(rep); x.add_(upd)`` bit for bit, upd left as
+      it was; refused with an energy model); returns xi.
+
+    One launch, or one a chunk of samples where ns·D f32 pass
+    ``_MAX_SAMPLE_BYTES`` (ns > 12 at D = 1024), the chunks' f32 sums
+    passed on in an f32 scratch, so a chunked sum rounds as one launch's.
     """
     _require(model.sample_force in _SAMPLE_MODEL_IDS,
              f"{model.name} has no grouped sample force")
@@ -479,22 +525,31 @@ def grouped_rep_force(model: ForceModel, group: int, xi, sg,
     ng, ns, sdim = sg.shape
     _require(sdim == dim, f"sg dim {sdim} != xi dim {dim}")
     _require(ng * group >= c, f"{ng} groups of {group} cover fewer than {c} rows")
+    _check_rep_mode(model, mode, xi, out, upd)
     if dev.type == "cpu":
-        return grouped_rep_force_plain(model, group, xi, sg, step)
+        return grouped_rep_force_plain(model, group, xi, sg, step, mode=mode,
+                                       out=out, upd=upd)
     _require(dev.type == "cuda", f"no kernel for device {dev}")
     _require(ns > 0, "sg holds no samples")
-    out = torch.empty((c, dim), dtype=xi.dtype, device=dev)
-    _check_cuda_operands(dim, xi, sg, out)
+    if mode == "store":
+        out = torch.empty((c, dim), dtype=xi.dtype, device=dev)
+    elif mode == "apply":
+        out = xi
+    _check_cuda_operands(dim, xi, sg, out, *(() if upd is None else (upd,)))
+    chunks = -(-ns // (_MAX_SAMPLE_BYTES // (dim * 4)))
+    part = (torch.empty((c, dim), dtype=torch.float32, device=dev)
+            if chunks > 1 else None)
     lib = _build.load_library()
     with torch.cuda.device(dev):
         err = lib.f2v_grouped_rep_force(
             xi.data_ptr(), sg.data_ptr(), _is_bf16(sg), _is_bf16(xi),
             _table_ptr(model.sample_force, dev), float(step), out.data_ptr(),
-            c, group, ns, dim,
-            _SAMPLE_MODEL_IDS[model.sample_force], _stream(dev))
+            None if upd is None else upd.data_ptr(),
+            None if part is None else part.data_ptr(), REP_MODES.index(mode),
+            c, group, ns, dim, _SAMPLE_MODEL_IDS[model.sample_force],
+            _stream(dev))
     _build.check(lib, "grouped_rep_force", err)
-    launch_counts["grouped_rep_force"] += -(-ns // (_MAX_SAMPLE_BYTES
-                                                   // (dim * 4)))
+    launch_counts["grouped_rep_force"] += chunks
     return out
 
 

@@ -34,12 +34,19 @@ iteration over the degree-sorted ELL layout (graphs/csr.py::SyncLayout):
 3. repulsion, added into the update:
 
    * group-shared negatives (the default): the ``[ng, ns, D]`` samples
-     ``xg[negs]``, one ``grouped_rep_force`` launch and an ``add_``;
+     ``xg[negs]`` and one ``grouped_rep_force`` launch, whose mode
+     (``rep_mode``, set by the constructor) says where its sum goes: at
+     one rank with an ``add`` update, ``apply``: the launch also makes
+     step 4, ``X += update + repulsion`` in place, the iteration's last
+     launch (no ``add_`` remains); with an energy update, ``add`` into
+     the update; under dp, ``store``, gathered over the ranks, and an
+     ``add_``;
    * per-vertex negatives (``per_vertex_samples``, the CLI's ``-bs 1``):
      one ``ell_sample_force`` launch over every table row, with its
      ``[n_pad, ns]`` sample ids, gathered and added in the kernel;
 
-4. ``X += update`` (or the energy-normalized update), in place.
+4. ``X += update`` (or the energy-normalized update), in place, unless
+   the repulsion applied it.
 
 X is f32 or bf16 (``config.dtype``; ``force_kernels.X_DTYPES``, the
 constructor refuses any other, naming it).  The update, ``inv_deg`` and
@@ -250,6 +257,15 @@ class SyncForce2Vec:
             raise ValueError(f"{self.model.name} draws walks over the unsplit "
                              "layout; the hot/cold split takes hot_rows=0")
         self.hot_rows = int(hot_rows)
+        # the group-shared repulsion's grouped_rep_force mode (None where
+        # no grouped launch runs: tp, per-vertex negatives): under dp each
+        # rank stores its slice, gathered over the ranks; at one rank an
+        # energy update adds into the update, which it normalises before X
+        # takes it, and any other applies X += update + repulsion
+        self.rep_mode = (
+            None if self._tp or config.per_vertex_samples
+            else "store" if spmd.n_dp > 1
+            else "add" if self.model.update == "energy" else "apply")
         # hot/cold split under dp: the JAX package aligns the span
         # rectangles to the dp row quantum, lcm(8, dp)
         self.layout = SyncLayout.build(
@@ -660,9 +676,12 @@ class SyncForce2Vec:
         return (fk.ell_edge_force_plain(*args) if plain
                 else fk.ell_edge_force(*args))
 
-    def _rank_repulsion(self, x, xg, negs, step, plain) -> torch.Tensor:
+    def _rank_repulsion(self, x, xg, negs, step, plain, upd=None):
         """The repulsion of this rank's rows: ``[n_pad, D]``, or under dp
-        the ``[n_pad / dp, D]`` of its 1/dp (``_dp_rows``)."""
+        the ``[n_pad / dp, D]`` of its 1/dp (``_dp_rows``).  Given
+        ``upd`` (group-shared negatives at one rank, ``rep_mode`` ``add``
+        or ``apply``), the launch adds it into ``upd`` or applies ``X +=
+        upd + rep`` instead, and returns what it wrote."""
         fk, model = force_kernels, self.model
         r0, r1 = self._rank_rows()
         rows, deg = self._all_rows[r0:r1], self._ns_deg[r0:r1]
@@ -679,12 +698,17 @@ class SyncForce2Vec:
         group = max(self.config.batch_size, 1)
         a0 = r0 // group * group
         sg = xg[negs[a0 // group: -(-r1 // group)].long()]  # [g, ns, D]
-        return (fk.grouped_rep_force_plain if plain else fk.grouped_rep_force)(
-            model, group, x[a0:r1], sg, step)[r0 - a0:]
+        rep = fk.grouped_rep_force_plain if plain else fk.grouped_rep_force
+        if upd is None:
+            return rep(model, group, x[a0:r1], sg, step)[r0 - a0:]
+        if self.rep_mode == "add":
+            return rep(model, group, x, sg, step, mode="add", out=upd)
+        return rep(model, group, x, sg, step, mode="apply", upd=upd)
 
     def _forces(self, x, xg, negs, walks, step, plain) -> torch.Tensor:
         """The iteration's update before the energy step: ``[n_pad, D]``
-        attraction plus repulsion."""
+        attraction plus repulsion; with ``rep_mode`` ``apply`` X has taken
+        it already (the returned update is the attraction alone)."""
         if self._tp:
             att, rep = self._tp_forces(x, xg, negs, walks, step, plain)
         elif walks is not None:
@@ -703,6 +727,9 @@ class SyncForce2Vec:
              else force_kernels.ell_sample_force)(*args, out=upd,
                                                   accumulate=True)
             return upd
+        if self.rep_mode in ("add", "apply"):  # in the launch
+            self._rank_repulsion(x, xg, negs, step, plain, upd=upd)
+            return upd
         return upd.add_(self._place_rows(
             self._rank_repulsion(x, xg, negs, step, plain)))
 
@@ -714,6 +741,8 @@ class SyncForce2Vec:
         xg = (x if self._gdt is None or x.dtype == torch.bfloat16
               else x.to(self._gdt))
         upd = self._forces(x, xg, negs, walks, step, plain)
+        if self.rep_mode == "apply":  # the repulsion launch applied X
+            return x
         if self.model.update == "energy":
             fnorm = self._rsum(upd * upd)
             safe = torch.where(fnorm > 0, fnorm, 1.0)

@@ -6,6 +6,7 @@ negatives injected in original id space and mapped through each runner's
 accumulating plain version; ``split_stats``; the walk models' refusal;
 and the default, no split."""
 
+import _jax_inline_dispatch  # noqa: F401  (first: before any JAX client)
 import numpy as np
 import pytest
 import torch

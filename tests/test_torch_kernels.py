@@ -5,6 +5,7 @@ only on the card, where ``chip_smoke.py`` holds them to these plain
 versions (this directory's conftest imports JAX, which the card's host
 lacks)."""
 
+import _jax_inline_dispatch  # noqa: F401  (first: before any JAX client)
 import dataclasses
 import importlib.util
 from pathlib import Path

@@ -9,6 +9,7 @@ plain versions.
 ``exp_sweepfloor``: the tests read the benchmark files as text and run
 those functions' source unchanged (``_nested``)."""
 
+import _jax_inline_dispatch  # noqa: F401  (first: before any JAX client)
 import ast
 import functools
 import importlib.util

@@ -3,6 +3,7 @@ negatives and walks: with the JAX Pallas kernels in interpret mode and with
 its jnp path, f32 and bf16 gathers, over a layout with a hub bucket; group-
 shared and per-vertex (-bs 1) negatives, and the rwalk walk engine."""
 
+import _jax_inline_dispatch  # noqa: F401  (first: before any JAX client)
 import os
 import subprocess
 import sys

@@ -27,6 +27,7 @@ step and |x| ≤ 1); 1e-5 rtol, 1e-6 atol between gloo ranks and one
 process.  The rank functions import no JAX (the ranks are spawned
 processes)."""
 
+import _jax_inline_dispatch  # noqa: F401  (first: before any JAX client)
 import contextlib
 import os
 

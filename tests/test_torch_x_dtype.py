@@ -33,6 +33,7 @@ rounding it covers:
 The module imports no JAX at the top: its gloo ranks import it.
 """
 
+import _jax_inline_dispatch  # noqa: F401  (first: before any JAX client)
 import contextlib
 import functools
 import os
