@@ -281,10 +281,39 @@ run):
     f32 X with the f16 replica, in turns, at the bench graph and at
     1,048,576 vertices.
 
+path L, ``run_span`` and ``train()`` as a CUDA graph (each single-card
+iteration captured once per X and replayed, the step and the draws in
+device buffers; ``train/graph.py``), in a fresh process (``--path L``),
+after path J in the full run:
+
+52. (L1) every single-card configuration of both trainers: the sync
+    schedule's main path with f32, bf16 and f16 X and with the f16
+    replica, ``-bs 1``, rwalk, sigmoid, the table σ, fr, linlog,
+    forceatlas, dim 100 and the hot/cold split at the bench graph; the
+    batch schedule at the CLI's default (bench graph) and with bf16 and
+    f16 X, ``-bs 1``, sigmoid, rwalk and the layout family on a small
+    graph, and tdist_exact on a smaller one.  Each: two eager runs of
+    L_ITERS iterations (``_run_span_eager``), ``train()`` (the graph) and
+    ``run_span`` in spans on a new X, from one seed: the same launch
+    counts in all four; the graph's runs against the first eager run bit
+    for bit, and for the sync schedule with a hub (its owners' f32
+    ``index_add_`` adds with float atomics, in any order) within the two
+    eager runs' spread;
+53. (L2) planted faults on both trainers that the graph's bound must
+    catch: the step buffer written once and never refreshed (fr, whose
+    step decays every iteration) and the negatives drawn once and never
+    redrawn (tdist);
+54. (L3) main with f32, bf16 and f16 X, rwalk and the batch schedule at
+    the bench graph, the graph against the eager loop in turns: back to
+    back and queued ms per iteration, host enqueue ms, the host's launch
+    calls per iteration and the idle share (profiled windows), our
+    kernels' device ms in each, capture seconds, the graph's pool beside
+    the eager iteration's peak.
+
 ``python3 chip_smoke.py --path F`` builds the kernels and runs path F
 alone (a check of the multi-card schedules on a host with several cards);
 ``--path G`` runs path G alone, ``--path H`` path H, ``--path I`` path I,
-``--path J`` path J, ``--path K`` path K.
+``--path J`` path J, ``--path K`` path K, ``--path L`` path L.
 
 The quality margins are half of what the JAX package reaches on the CPU
 with the same graph, configuration and iteration count
@@ -336,11 +365,12 @@ from force2vec_tpu_torch.ops import probe_kernels as pk
 from force2vec_tpu_torch.tools import (BENCH_CONFIG, HUB_WIDTH, MIN_WIDTH,
                                       card_name_and_power, cuda_ms, probes,
                                       queued_device_ms)
-from force2vec_tpu_torch.tools.profile_iter import device_breakdown
+from force2vec_tpu_torch.tools.profile_iter import (device_breakdown,
+                                                    profile_window)
 from force2vec_tpu_torch.train.sync import DeviceBucket, SyncForce2Vec
 from force2vec_tpu_torch.train.checkpoint import load_checkpoint
 from force2vec_tpu_torch.train.trainer import (Force2Vec, TrainConfig,
-                                               round_to)
+                                               iteration_seed, round_to)
 from force2vec_tpu_torch.utils.profiling import Meter
 
 TRAIN_ITERS = 50
@@ -529,6 +559,54 @@ J_DIMS = (2, 8, 16, 24, 32, 64, 100, 128, 256, 512, 1000, 1024)
 J_DTYPES = ((torch.float32, torch.bfloat16), (torch.float32, torch.float32),
             (torch.bfloat16, torch.bfloat16))
 J_FAULT_DIMS = (100, 128)
+# path L, run_span and train() as a CUDA graph: L_ITERS iterations of each
+# configuration against the eager loop from the same seed, the same run in
+# spans, bit for bit.  The sync schedule's hub owners' index_add_ adds with
+# float atomics, in any order: two eager runs of main with f32 X differ by
+# ~1e-7 after 20 iterations and of the layout family by ~0.5 (its energy
+# step normalises each row's update: a difference in a row's last bits
+# turns its step, and repulsions of 1/r grow it), as much as a fault would
+# move it (the first chip runs of path L).  So the sync schedule is held
+# where two eager runs meet bit for bit, under torch's deterministic mode
+# (index_add_ as a sorted, ordered sum), and its default mode's eager
+# spread is reported beside it
+L_ITERS = 20
+L_SPANS = (7, 7, 6)
+# (what, TrainConfig over the bench's, hot rows as a share of n): every
+# single-card sync configuration
+L_SYNC = (
+    ("main f32 X", {}, 0),
+    ("main bf16 X", dict(dtype="bfloat16", gather_dtype=None), 0),
+    ("main f16 X", dict(dtype="float16", gather_dtype=None), 0),
+    ("main f16 replica", dict(gather_dtype="float16"), 0),
+    ("-bs 1", dict(per_vertex_samples=True), 0),
+    ("rwalk", dict(model="rwalk"), 0),
+    ("sigmoid", dict(model="sigmoid"), 0),
+    ("sigmoid table", dict(model="sigmoid", sm_table=True), 0),
+    ("fr", dict(model="fr"), 0),
+    ("linlog", dict(model="linlog"), 0),
+    ("forceatlas", dict(model="forceatlas"), 0),
+    ("dim 100", dict(dim=100), 0),
+    ("hot rows n/8", {}, H_HOT_DIV),
+)
+# (what, TrainConfig, graph): the batch trainer, the CLI's default at the
+# bench graph, every other model and mode on SMALL_GRAPH, tdist_exact on
+# EXACT_GRAPH
+L_BATCH_CONFIG = TrainConfig(dim=128, batch_size=256, model="tdist", ns=5)
+L_BATCH = (
+    ("batch tdist", {}, "bench"),
+    ("batch tdist bf16 X", dict(dtype="bfloat16"), "small"),
+    ("batch tdist f16 X", dict(dtype="float16"), "small"),
+    ("batch -bs 1", dict(per_vertex_samples=True), "small"),
+    ("batch sigmoid", dict(model="sigmoid"), "small"),
+    ("batch rwalk", dict(model="rwalk"), "small"),
+    ("batch fr", dict(model="fr"), "small"),
+    ("batch linlog", dict(model="linlog"), "small"),
+    ("batch forceatlas", dict(model="forceatlas"), "small"),
+    ("batch tdist_exact", dict(model="tdist_exact"), "exact"),
+)
+# the configurations path L times, graph against eager
+L_TIMED = ("main f32 X", "main bf16 X", "main f16 X", "rwalk", "batch tdist")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # The card's peaks for bound_ms (H100 SXM at 700 W): device memory, and
 # f32 outside the tensor cores.
@@ -4686,6 +4764,277 @@ def rep_modes_path(graph, dev, card):
     return rec, counts
 
 
+# -- path L: run_span and train() as a CUDA graph --------------------------------
+
+
+def l_runs(fv, x0):
+    """From ``x0`` (``init_embedding(seed=1)``): two eager runs of L_ITERS
+    iterations (``_run_span_eager``), ``train()`` (the graph: a capture on
+    its own X, then replays) and ``run_span`` in spans of L_SPANS on a new
+    X, with each run's launch counts.  Returns (eager Xs, train's [n, dim]
+    embedding, the spans' X, counts)."""
+    eager, counts = [], []
+    for _ in range(2):
+        reset_counts()
+        x = x0.clone()
+        fv._run_span_eager(x, 1, L_ITERS)
+        eager.append(x)
+        counts.append(read_counts())
+    reset_counts()
+    emb = fv.train(iters=L_ITERS, seed=1)
+    counts.append(read_counts())
+    xs, done = x0.clone(), 0
+    reset_counts()
+    for k in L_SPANS:
+        fv.run_span(xs, 1, k, done)
+        done += k
+    counts.append(read_counts())
+    return eager, emb, xs, counts
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic mode (the sync schedule's hub ``index_add_``
+    as an ordered sum), with uninitialised memory left unfilled, as the
+    default mode leaves it."""
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
+def l_check(fv, what, errs, card) -> dict:
+    """Path L's checks of one configuration (``l_runs``; the sync
+    schedule under ``deterministic``): ``train()`` and the spans against
+    the first eager run, and the two eager runs, bit for bit; the same
+    launch counts in all four runs; X finite.  Failures go to ``errs``.
+    The sync schedule's default-mode eager spread is reported."""
+    x0 = fv.init_embedding(seed=1)
+    sync = isinstance(fv, SyncForce2Vec)
+    default_spread = None
+    if sync:
+        a, b = x0.clone(), x0.clone()
+        fv._run_span_eager(a, 1, L_ITERS)
+        fv._run_span_eager(b, 1, L_ITERS)
+        default_spread = max_err(a, b)
+    with deterministic() if sync else contextlib.nullcontext():
+        eager, emb, xs, counts = l_runs(fv, x0)
+    fv.span_graph.reset()  # captured in deterministic mode
+    spread = max_err(eager[0], eager[1])
+    e_train = max_err(emb, fv.unpad_embedding(eager[0]))
+    e_spans = max_err(xs, eager[0])
+    g = fv.span_graph
+    rec = dict(eager_spread=spread, train_vs_eager=e_train,
+               spans_vs_eager=e_spans, moved=max_err(eager[0], x0),
+               default_mode_eager_spread=default_spread,
+               launches=counts[0], launches_per_replay=g.counts,
+               capture_s=g.capture_seconds, pool_mb=g.pool_bytes / 2**20,
+               captures=g.captures)
+    mode = (f"deterministic mode; default mode eager vs eager "
+            f"{default_spread:.3e}" if sync else "default mode")
+    say(f"L {what}: {L_ITERS} iterations ({mode}), eager vs eager "
+        f"{spread:.3e}, train() (graph) vs eager {e_train:.3e}, run_span "
+        f"in spans {L_SPANS} vs eager {e_spans:.3e} (X moved up to "
+        f"{rec['moved']:.3e}); "
+        f"launches {nonzero(counts[0])}, per replay {g.counts}; {g.captures} "
+        f"captures, the last {g.capture_seconds:.3f} s, graph pool "
+        f"{rec['pool_mb']:.1f} MB [{card}]")
+    for name, e in (("eager", spread), ("train()", e_train),
+                    ("spans", e_spans)):
+        if e != 0.0:
+            errs.append(f"{what}: {name} vs eager {e:.3e}, not bit for bit")
+    if any(c != counts[0] for c in counts):
+        errs.append(f"{what}: launch counts differ: {counts}")
+    if not (bool(torch.isfinite(emb).all()) and bool(torch.isfinite(xs).all())):
+        errs.append(f"{what}: X is not finite")
+    return rec
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def l_stale_step(fv, gen):
+    """A planted fault: a graph span's host step that writes the step
+    buffer at its first iteration and never again."""
+    written = []
+
+    def prepare(seed, it):
+        if not written:
+            fv._step_buf.write(fv._step(it))
+            written.append(it)
+        gen.manual_seed(iteration_seed(seed, it))
+    return prepare
+
+
+def l_stale_draws(fv, gen):
+    """A planted fault: a captured iteration that reads the negatives (and
+    walks) of iteration 0, drawn once outside the graph, at every replay."""
+    gen.manual_seed(iteration_seed(1, 0))
+    negs, walks = fv._draw(gen)
+    if isinstance(fv, SyncForce2Vec):
+        return lambda x: fv._iteration(x, negs, walks, fv._step_buf.tensor,
+                                       plain=False)
+    return lambda x: fv._iteration(x, negs, walks, fv._step_buf.tensor)
+
+
+def l_faults(graph, small, dev, card, errs) -> dict:
+    """The planted faults, each on a fresh trainer of both schedules (the
+    sync schedule under ``deterministic``): the step buffer not refreshed
+    (fr, decay999) and the negatives not redrawn (tdist).  Each must move X
+    off the eager run, which path L holds the graph to bit for bit."""
+    out = {}
+    for what, make in (
+            ("sync fr", lambda: SyncForce2Vec(
+                graph, dataclasses.replace(BENCH_CONFIG, model="fr"),
+                MIN_WIDTH, HUB_WIDTH, device=dev)),
+            ("sync tdist", lambda: SyncForce2Vec(
+                graph, BENCH_CONFIG, MIN_WIDTH, HUB_WIDTH, device=dev)),
+            ("batch fr", lambda: Force2Vec(
+                small, dataclasses.replace(L_BATCH_CONFIG, model="fr"),
+                device=dev)),
+            ("batch tdist", lambda: Force2Vec(small, L_BATCH_CONFIG,
+                                              device=dev))):
+        fv = make()
+        sync = isinstance(fv, SyncForce2Vec)
+        gen = fv._span_gen if sync else fv._gen
+        x0 = fv.init_embedding(seed=1)
+        e1, x = x0.clone(), x0.clone()
+        fault, name = ((l_stale_step(fv, gen), "step not refreshed")
+                       if "fr" in what else
+                       (l_stale_draws(fv, gen), "negatives not redrawn"))
+        if "fr" in what:
+            fv.span_graph._prepare = fault
+        else:
+            fv.span_graph._body = fault
+        with deterministic() if sync else contextlib.nullcontext():
+            fv._run_span_eager(e1, 1, L_ITERS)
+            fv.run_span(x, 1, L_ITERS)
+        e = max_err(x, e1)
+        out[f"{what}: {name}"] = e
+        say(f"L planted fault, {what}, {name}: graph vs eager {e:.3e} "
+            f"({'caught' if e > 0.0 else 'MISSED'})")
+        if not e > 0.0:
+            errs.append(f"planted fault {what} {name} not caught")
+    return out
+
+
+def l_timing(fv, what, card) -> dict:
+    """The graph against the eager loop on one trainer, in turns (eager,
+    graph, graph, eager): back-to-back ms per iteration (CUDA events over
+    a span), host enqueue ms per iteration, queued device ms per iteration
+    (the eager batch schedule cannot be queued: its enqueue outlasts the
+    sleep), a profiled window of each, the capture's seconds and pool, and
+    the eager iteration's peak of allocated memory."""
+    sync = isinstance(fv, SyncForce2Vec)
+    n = L_ITERS if sync else 3
+    x = fv.init_embedding(seed=1)
+    fv.span_graph.reset()
+    fv.run_span(x, 1, 1)  # the capture on x
+    run = {"graph": lambda k: fv.run_span(x, 1, k, 1),
+           "eager": lambda k: fv._run_span_eager(x, 1, k, 1)}
+    res = {"b2b_ms": {"graph": [], "eager": []},
+           "enqueue_ms": {"graph": [], "eager": []}}
+    for mode in ("eager", "graph", "graph", "eager"):
+        res["b2b_ms"][mode].append(
+            cuda_ms(lambda: run[mode](n), reps=1, warmup=1) / n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run[mode](n)
+        res["enqueue_ms"][mode].append((time.perf_counter() - t0) * 1e3 / n)
+        torch.cuda.synchronize()
+    res["queued_ms"] = {
+        "graph": queued_device_ms(lambda: run["graph"](1),
+                                  reps=10 if sync else 2),
+        "eager": (queued_device_ms(lambda: run["eager"](1), reps=10)
+                  if sync else None)}
+    res["profile"] = {mode: profile_window(lambda: run[mode](n), n)[0]
+                      for mode in ("graph", "eager")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    run["eager"](1)
+    torch.cuda.synchronize()
+    res["eager_peak_mb"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    g = fv.span_graph
+    res["capture_s"], res["pool_mb"] = g.capture_seconds, g.pool_bytes / 2**20
+    prof = res["profile"]
+    say(f"L timing {what}: ms/iteration back to back graph "
+        f"{res['b2b_ms']['graph']} eager {res['b2b_ms']['eager']}; host "
+        f"enqueue graph {res['enqueue_ms']['graph']} eager "
+        f"{res['enqueue_ms']['eager']}; queued graph "
+        f"{res['queued_ms']['graph']} eager {res['queued_ms']['eager']}; "
+        f"host launches/iteration graph {prof['graph']['host_launches']:.1f} "
+        f"eager {prof['eager']['host_launches']:.1f}; device busy graph "
+        f"{prof['graph']['busy_ms']:.4f} eager {prof['eager']['busy_ms']:.4f}"
+        f", idle share graph {prof['graph']['idle_share']} eager "
+        f"{prof['eager']['idle_share']}; capture {res['capture_s']:.3f} s, "
+        f"graph pool {res['pool_mb']:.1f} MB, eager peak "
+        f"{res['eager_peak_mb']:.1f} MB [{card}]")
+    for mode in ("graph", "eager"):
+        kernels = {name[:48]: round(k["ms_per_iter"], 5)
+                   for name, k in prof[mode].pop("kernels").items()
+                   if "f2v" in name}
+        say(f"L timing {what} {mode}, our kernels' device ms/iteration: "
+            f"{json.dumps(kernels)} [{card}]")
+    return res
+
+
+def graph_path(graph, dev, card):
+    """Path L: every single-card configuration of both trainers, its
+    ``train()`` and ``run_span`` (the CUDA graph) against the eager loop
+    (``l_check``), the planted faults (``l_faults``), and the timed
+    configurations (``l_timing``).  Returns (record, launch counts)."""
+    small = synth_powerlaw_graph(**SMALL_GRAPH)
+    graphs = {"bench": graph, "small": small,
+              "exact": synth_powerlaw_graph(**EXACT_GRAPH)}
+    errs, rec, total = [], {"configs": {}, "timing": {}}, {}
+    for what, kw, hot_div in L_SYNC:
+        fv = SyncForce2Vec(graph, dataclasses.replace(BENCH_CONFIG, **kw),
+                           MIN_WIDTH, HUB_WIDTH, device=dev,
+                           hot_rows=graph.n // hot_div if hot_div else 0)
+        r = rec["configs"][what] = l_check(fv, what, errs, card)
+        add_counts(total, r["launches"])
+        if what in L_TIMED:
+            rec["timing"][what] = l_timing(fv, what, card)
+        del fv
+    for what, kw, g in L_BATCH:
+        fv = Force2Vec(graphs[g], dataclasses.replace(L_BATCH_CONFIG, **kw),
+                       device=dev)
+        rec["configs"][what] = l_check(fv, what, errs, card)
+        if what in L_TIMED:
+            rec["timing"][what] = l_timing(fv, what, card)
+        del fv
+    rec["faults"] = l_faults(graph, small, dev, card, errs)
+    for e in errs:
+        say(f"L FAILED: {e}")
+    check(not errs, f"path L: {len(errs)} failures: {errs}")
+    return rec, total
+
+
+def path_l_process():
+    """Path L as ``--path L`` in a fresh process (its profiled windows
+    read the device's kernels, as path J's do).  Echoes its L lines;
+    returns (its record, its launch counts)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--path", "L"], capture_output=True, text=True,
+                         timeout=900)
+    lines = res.stdout.splitlines()
+    for line in lines:
+        if line.startswith(("L ", "path L")):
+            say(line)
+    check(res.returncode == 0,
+          f"path L exited {res.returncode}: {res.stderr[-4000:]}")
+    rec = json.loads(lines[-2])
+    return rec["graph"], rec["path_L_launches"]
+
+
 def path_j_process():
     """Path J as ``--path J`` in a fresh process: in a process that has
     run the other paths the profiler records no device kernel, and J3
@@ -4752,6 +5101,16 @@ def main() -> int:
                        f"{missing}")
 
     graph = synth_powerlaw_graph()
+    if sys.argv[1:] == ["--path", "L"]:
+        t0 = time.perf_counter()
+        rec, counts = graph_path(graph, dev, card)
+        say(f"path L (train() as a CUDA graph): "
+            f"{time.perf_counter() - t0:.1f} s")
+        say(json.dumps({"path_L_launches": counts, "graph": rec}))
+        say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if sys.argv[1:] == ["--path", "J"]:
         t0 = time.perf_counter()
         rec, counts = rep_modes_path(graph, dev, card)
@@ -4857,6 +5216,12 @@ def main() -> int:
     rep["modes"], counts_modes = path_j_process()
     say(f"path J (repulsion modes, --path J): "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    graph_rec, counts_graph = path_l_process()
+    say(f"path L (train() as a CUDA graph, --path L): "
+        f"{time.perf_counter() - t0:.1f} s")
+    say(f"train() as a CUDA graph, timed: {json.dumps(graph_rec['timing'])} "
+        f"[{card}]")
     timing = {str(k): v for k, v in x_bf16_timing.items()}
     say(f"bf16 X timing: {json.dumps(timing)} [{card}]")
     timing = {str(k): v for k, v in x_f16_timing.items()}
@@ -4870,7 +5235,7 @@ def main() -> int:
              "vertex": counts_vertex, "dp": counts_dp, "tp": counts_tp,
              "widths": counts_widths, "split": counts_split,
              "x_bf16": counts_bf16, "x_f16": counts_f16,
-             "rep_modes": counts_modes}
+             "rep_modes": counts_modes, "graph": counts_graph}
     for name, m in (("ell_edge_force", edge), ("grouped_rep_force", rep),
                     ("ell_sample_force", sample)):
         (m["queued_ms_dim64"], m["bound_ms_dim64"],

@@ -3,9 +3,11 @@
 A port of ``force2vec_tpu/models/forces.py``: the same seven models, the
 same metadata, and the same ``(xi, xj, inv_deg, step, rsum, mask)``
 contract for every edge and sample force, with the reference citations
-kept (sample/algorithms.cpp line numbers).  ``rsum`` reduces over the
-embedding dimension (keepdim); ``mask`` zeroes the per-pair scalar
-coefficient — a bool mask selects, a float 0/1 mask multiplies.
+kept (sample/algorithms.cpp line numbers).  ``step`` is a float or a 0-d
+tensor (the trainers' step buffer on the card), each giving the same
+bits.  ``rsum`` reduces over the embedding dimension (keepdim); ``mask``
+zeroes the per-pair scalar coefficient — a bool mask selects, a float 0/1
+mask multiplies.
 
 ``get_model(name, sm_table=True)`` gives the sigmoid family's lookup-table
 variant (the reference's fast_SM, sample/algorithms.cpp:755-776) with its
@@ -32,6 +34,13 @@ SM_RESOLUTION = SM_TABLE_SIZE / (2.0 * SM_BOUND)
 
 def _clamp(x):
     return torch.clamp(x, -MAXBOUND, MAXBOUND)
+
+
+def _over(c, t):
+    """``c / t`` for a step-scaled ``c``, rounded as torch rounds a Python
+    float over a tensor (``t.reciprocal() * c``) whether ``c`` is a float
+    or a 0-d tensor (a trainer's step buffer), so both give the same bits."""
+    return t.reciprocal() * c
 
 
 def _local_rsum(v):
@@ -116,7 +125,7 @@ def _tdist_edge(xi, xj, inv_deg, step, rsum=_local_rsum, mask=None):
     # reference's clamp never binds on this term: 2|diff_c|/(1+a) ≤ 1.
     diff = xi - xj
     a = rsum(diff * diff)
-    d1 = _mask1(step * -2.0 / (1.0 + a), mask)
+    d1 = _mask1(_over(step * -2.0, 1.0 + a), mask)
     return d1 * diff
 
 
@@ -209,7 +218,7 @@ def _layout_rep(xi, s, step, rsum=_local_rsum, mask=None):
 
 
 def _tdist_coeff(a, invd, step):
-    return step * -2.0 / (1.0 + a)
+    return _over(step * -2.0, 1.0 + a)
 
 
 def _sigmoid_coeff(a, invd, step):

@@ -47,27 +47,30 @@ _F = ctypes.c_float
 # c_void_p, so ctypes never truncates them to 32 bits)
 _SIGNATURES = {
     # x, xg, xg_dtype, x_dtype (DType codes; x, invd and out in x's),
-    # nbr, deg, xi_row, invd, sm_table, step, out, accumulate, table (host
-    # [n_entries, 5] int64), n_entries, dim, model, stream
-    "f2v_ell_edge_force": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _F, _P, _I,
+    # nbr, deg, xi_row, invd, sm_table, step (a device f32 scalar), out,
+    # accumulate, table (host [n_entries, 5] int64), n_entries, dim, model,
+    # stream
+    "f2v_ell_edge_force": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                            _P, _I, _I, _I, _P),
     # xi, sg, sg_dtype, xi_dtype (xi, out and upd in xi's), sm_table,
-    # step, out, upd, part (f32 scratch of a chunked sum), mode (0 store,
-    # 1 add, 2 apply), rows, group, ns, dim, model, stream
-    "f2v_grouped_rep_force": (_P, _P, _I, _I, _P, _F, _P, _P, _P, _I, _I,
+    # step (a device f32 scalar), out, upd, part (f32 scratch of a chunked
+    # sum), mode (0 store, 1 add, 2 apply), rows, group, ns, dim, model,
+    # stream
+    "f2v_grouped_rep_force": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I,
                               _I, _I, _I, _I, _P),
     # x, xg, xg_dtype, x_dtype (x and out in x's), idx, deg, xi_row,
-    # sm_table, step, out, accumulate, rows, width, dim, model, stream
-    "f2v_ell_sample_force": (_P, _P, _I, _I, _P, _P, _P, _P, _F, _P, _I, _I,
+    # sm_table, step (a device f32 scalar), out, accumulate, rows, width,
+    # dim, model, stream
+    "f2v_ell_sample_force": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
                              _I, _I, _I, _P),
     # x, xg, xg_dtype, x_dtype, nbr, deg, xi_row, part, table (host
     # [n_entries, 5] int64), n_entries, dim, dot, stream
     "f2v_tp_pair_partial": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                             _P),
     # x, xg, xg_dtype, x_dtype (x, invd and out in x's), nbr, deg,
-    # xi_row, invd, sm_table, a, step, out, accumulate, table, n_entries,
-    # dim, kind, model, stream
-    "f2v_tp_pair_force": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _F, _P, _I,
+    # xi_row, invd, sm_table, a, step (a device f32 scalar), out,
+    # accumulate, table, n_entries, dim, kind, model, stream
+    "f2v_tp_pair_force": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                           _P, _I, _I, _I, _I, _P),
     # the benchmark probes (probe_kernels.py)
     # tbl, tbl_is_bf16, idx, out, rows, k, dim, stages, stream

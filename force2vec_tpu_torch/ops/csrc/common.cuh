@@ -448,7 +448,9 @@ struct EllArgs {
   TX* out;                // [out rows, dim]
   const float* a;         // [slots] pair scalars, read by kLoad
   float* part;            // [slots] pair scalars, written by kStore
-  float step;
+  // the step, a device scalar, so that a captured launch reads the value
+  // of each replay; not read by kStore
+  const float* step;
   int dim;                // elements a row: a multiple of kRowAlign
   int accumulate;         // store out + sum instead of sum
   int n_entries;
@@ -556,6 +558,10 @@ __device__ __forceinline__ void ell_block(const EllArgs<T, TX>& p) {
     for (int v = 0; v < E; ++v) acc[c][v] = 0.0f;
   }
 
+  // the step: one load a thread, the same word for the whole block
+  float step = 0.0f;
+  if constexpr (!kStores) step = __ldg(p.step);
+
   // kStore's rounds cover the whole width, the padded slots' 0s included
   const int rounds_end = kStores ? e.width : n_max;
   for (int i0 = 0; i0 < rounds_end; i0 += G) {
@@ -616,13 +622,13 @@ __device__ __forceinline__ void ell_block(const EllArgs<T, TX>& p) {
                                ? __shfl_sync(kFullMask, my_a, k + u, G)
                                : a[u];
           if (i0 + k + u < n) {
-            const float cf = F::coeff(au, invd_i, p.step, p.sm_table);
+            const float cf = F::coeff(au, invd_i, step, p.sm_table);
 #pragma unroll
             for (int c = 0; c < P; ++c) {
 #pragma unroll
               for (int v = 0; v < E; ++v) {
                 acc[c][v] += F::term(
-                    cf, F::vec(xi[c][v], piece_f32<T>(xj[u][c], v)), p.step);
+                    cf, F::vec(xi[c][v], piece_f32<T>(xj[u][c], v)), step);
               }
             }
           }

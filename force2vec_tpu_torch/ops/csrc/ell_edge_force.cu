@@ -115,15 +115,17 @@ template cudaError_t edge_launch(EllArgs<TypeOf<F2V_GATHER>, TypeOf<F2V_X>>&,
 // [2048] f32 sigmoid table for kSigmoidTable, else unused (may be null).
 // accumulate: add into out's rows instead of storing.  xg_dtype, x_dtype:
 // the gather table's and X's (x, invd and out) element types, DType codes
-// (an f32 X with any gather type, another X with its own).
+// (an f32 X with any gather type, another X with its own).  step: a device
+// f32 scalar, read by the kernel (a captured launch reads each replay's).
 extern "C" int f2v_ell_edge_force(const void* x, const void* xg,
                                   int xg_dtype, int x_dtype,
                                   const void* nbr, const void* deg,
                                   const void* xi_row, const void* invd,
-                                  const void* sm_table, float step,
+                                  const void* sm_table, const void* step,
                                   void* out, int accumulate,
                                   const void* table, int n_entries, int dim,
                                   int model, void* stream) {
+  if (step == nullptr) return cudaErrorInvalidValue;
   return f2v::with_dtypes(xg_dtype, x_dtype, [&](auto types) {
     using T = typename decltype(types)::T;
     using TX = typename decltype(types)::TX;
@@ -136,7 +138,7 @@ extern "C" int f2v_ell_edge_force(const void* x, const void* xg,
     p.invd = static_cast<const TX*>(invd);
     p.sm_table = static_cast<const float*>(sm_table);
     p.out = static_cast<TX*>(out);
-    p.step = step;
+    p.step = static_cast<const float*>(step);
     p.dim = dim;
     p.accumulate = accumulate != 0;
     return f2v::edge_launch<T, TX>(p, static_cast<const int64_t*>(table),

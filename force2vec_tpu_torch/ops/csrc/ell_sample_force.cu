@@ -104,14 +104,16 @@ template cudaError_t sample_launch(
 // sm_table: the device's [2048] f32 sigmoid table for kSigmoidTableRep,
 // else unused (may be null).  xg_dtype, x_dtype: the gather table's and
 // X's (x and out) element types, DType codes (an f32 X with any gather
-// type, another X with its own).
+// type, another X with its own).  step: a device f32 scalar, read by the
+// kernel (a captured launch reads each replay's).
 extern "C" int f2v_ell_sample_force(const void* x, const void* xg,
                                     int xg_dtype, int x_dtype,
                                     const void* idx, const void* deg,
                                     const void* xi_row, const void* sm_table,
-                                    float step, void* out, int accumulate,
-                                    int rows, int width, int dim, int model,
-                                    void* stream) {
+                                    const void* step, void* out,
+                                    int accumulate, int rows, int width,
+                                    int dim, int model, void* stream) {
+  if (step == nullptr) return cudaErrorInvalidValue;
   return f2v::with_dtypes(xg_dtype, x_dtype, [&](auto types) {
     using T = typename decltype(types)::T;
     using TX = typename decltype(types)::TX;
@@ -124,7 +126,7 @@ extern "C" int f2v_ell_sample_force(const void* x, const void* xg,
     p.invd = nullptr;
     p.sm_table = static_cast<const float*>(sm_table);
     p.out = static_cast<TX*>(out);
-    p.step = step;
+    p.step = static_cast<const float*>(step);
     p.dim = dim;
     p.accumulate = accumulate != 0;
     return f2v::sample_launch<T, TX>(p, rows, width, model,

@@ -73,7 +73,7 @@ struct RepArgs {
   const void* upd;        // apply: [rows, dim], X's type
   void* out;              // [rows, dim], X's type; apply: X (== xi)
   float* part;            // [rows, dim] f32 sums between chunks, or null
-  float step;
+  const float* step;      // the step, a device scalar (read by each replay)
   int rows;
   int group;
   int ns;
@@ -127,7 +127,7 @@ __device__ __forceinline__ void fill_samples(const RepArgs& p, float* samples,
 // past the last row computes on zeros and writes nothing).
 template <typename TX, int G, int P, bool kFull, int M>
 __device__ __forceinline__ void rep_rows(const RepArgs& p,
-                                         const float* samples,
+                                         const float* samples, float step,
                                          int warp_first, int hi) {
   using RC = RowClass<TX, G, P, kFull>;
   using F = SampleForce<M>;
@@ -187,8 +187,7 @@ __device__ __forceinline__ void rep_rows(const RepArgs& p,
           }
         }
       }
-      const float cf = F::coeff(group_sum<G>(part), 0.0f, p.step,
-                                p.sm_table);
+      const float cf = F::coeff(group_sum<G>(part), 0.0f, step, p.sm_table);
 #pragma unroll
       for (int c = 0; c < P; ++c) {
         if (kFull || c * G < mine) {
@@ -201,7 +200,7 @@ __device__ __forceinline__ void rep_rows(const RepArgs& p,
           }
 #pragma unroll
           for (int v = 0; v < E; ++v) {
-            acc[c][v] += F::term(cf, F::vec(xi[c][v], t[v]), p.step);
+            acc[c][v] += F::term(cf, F::vec(xi[c][v], t[v]), step);
           }
         }
       }
@@ -235,15 +234,27 @@ __device__ __forceinline__ void rep_rows(const RepArgs& p,
 // flight; left to choose, the compiler took 40 registers (6 blocks), and
 // tdist at dim 128 ran 8% slower on an H100.  The sigmoid family's exact
 // and table σ need more registers than 32 hold, and so do eight elements a
-// lane (a bf16 piece, two f32 ones): they keep the compiler's choice.
+// lane (a bf16 or f16 piece, two f32 ones): they keep the compiler's
+// choice, but for tdist's one-piece 2-byte rows that fill 4 to 16 lanes
+// (dims 32 to 128), which fit 40 registers (6 blocks): with the step read
+// from device memory the compiler took 45 to 48 (5 blocks), and dim 128
+// ran 9% slower on an H100.
 template <int M>
-constexpr int kRepMinBlocks(int elements) {
-  return elements == 4 && (M == kTdistRep || M == kLayoutRep) ? 8 : 1;
+constexpr int kRepMinBlocks(int elements, int x_bytes, int lanes,
+                            bool full) {
+  if (elements == 4 && (M == kTdistRep || M == kLayoutRep)) return 8;
+  const bool one_piece_2byte = x_bytes == 2 && elements == 8;
+  return M == kTdistRep && one_piece_2byte && full && lanes >= 4 &&
+                 lanes <= 16
+             ? 6
+             : 1;
 }
 
 template <typename TX, int G, int P, bool kFull, int M>
 __global__ void __launch_bounds__(
-    kWarpsPerBlock * 32, kRepMinBlocks<M>(P * RowClass<TX, G, P, kFull>::E))
+    kWarpsPerBlock * 32,
+    kRepMinBlocks<M>(P * RowClass<TX, G, P, kFull>::E, int(sizeof(TX)), G,
+                     kFull))
     grouped_rep_force_kernel(const RepArgs p) {
   constexpr int kRowsPerBlock = kRounds * kWarpsPerBlock * (32 / G);
   extern __shared__ float4 smem[];  // [cn, dim] of this block's group
@@ -260,9 +271,11 @@ __global__ void __launch_bounds__(
   if (lo >= end) return;  // the whole block: no row of this group left
   const int hi = int(end);
   const int warp_first = int(lo) + (threadIdx.x >> 5) * (32 / G);
+  // the step, one word for the block, loaded while the samples are staged
+  const float step = __ldg(p.step);
   fill_samples(p, samples, g);
   __syncthreads();
-  rep_rows<TX, G, P, kFull, M>(p, samples, warp_first, hi);
+  rep_rows<TX, G, P, kFull, M>(p, samples, step, warp_first, hi);
 }
 
 // The instance for `model`, or null.
@@ -337,17 +350,18 @@ template cudaError_t rep_launch<TypeOf<F2V_X>>(int, RepArgs, cudaStream_t);
 // samples' and xi's (xi, out and upd) element types, DType codes (an f32
 // xi with samples of any type, another xi with its own).  part: an f32
 // [rows, dim] scratch when ns · dim · 4 passes kMaxSampleBytes, else
-// unused.
+// unused.  step: a device f32 scalar, read by the kernel (a captured launch
+// reads each replay's).
 extern "C" int f2v_grouped_rep_force(const void* xi, const void* sg,
                                      int sg_dtype, int xi_dtype,
-                                     const void* sm_table, float step,
+                                     const void* sm_table, const void* step,
                                      void* out, const void* upd, void* part,
                                      int mode, int rows, int group, int ns,
                                      int dim, int model, void* stream) {
   if (rows <= 0) return cudaSuccess;
-  if (group <= 0 || ns <= 0 || dim < f2v::kRowAlign || dim > f2v::kMaxDim ||
-      dim % f2v::kRowAlign != 0 || mode < f2v::kStoreMode ||
-      mode > f2v::kApplyMode ||
+  if (step == nullptr || group <= 0 || ns <= 0 || dim < f2v::kRowAlign ||
+      dim > f2v::kMaxDim || dim % f2v::kRowAlign != 0 ||
+      mode < f2v::kStoreMode || mode > f2v::kApplyMode ||
       (mode == f2v::kApplyMode && (upd == nullptr || out != xi))) {
     return cudaErrorInvalidValue;
   }
@@ -358,7 +372,7 @@ extern "C" int f2v_grouped_rep_force(const void* xi, const void* sg,
   p.upd = upd;
   p.out = out;
   p.part = static_cast<float*>(part);
-  p.step = step;
+  p.step = static_cast<const float*>(step);
   p.rows = rows;
   p.group = group;
   p.ns = ns;

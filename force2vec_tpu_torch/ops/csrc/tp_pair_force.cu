@@ -204,15 +204,17 @@ extern "C" int f2v_tp_pair_partial(const void* x, const void* xg,
 // kind: 0 the edge force (model an EdgeModel id), 1 the sample force
 // (a SampleModel id).  a: [slots] f32 reduced scalars.  invd: read only by
 // the sigmoid edge forces; sm_table only by the table models.  xg_dtype,
-// x_dtype: as f2v_tp_pair_partial's (x, invd and out in x's type).
+// x_dtype: as f2v_tp_pair_partial's (x, invd and out in x's type).  step:
+// a device f32 scalar, read by the kernel.
 extern "C" int f2v_tp_pair_force(const void* x, const void* xg,
                                  int xg_dtype, int x_dtype,
                                  const void* nbr, const void* deg,
                                  const void* xi_row, const void* invd,
                                  const void* sm_table, const void* a,
-                                 float step, void* out, int accumulate,
+                                 const void* step, void* out, int accumulate,
                                  const void* table, int n_entries, int dim,
                                  int kind, int model, void* stream) {
+  if (step == nullptr) return cudaErrorInvalidValue;
   return f2v::with_dtypes(xg_dtype, x_dtype, [&](auto types) {
     using T = typename decltype(types)::T;
     using TX = typename decltype(types)::TX;
@@ -221,7 +223,7 @@ extern "C" int f2v_tp_pair_force(const void* x, const void* xg,
     p.sm_table = static_cast<const float*>(sm_table);
     p.a = static_cast<const float*>(a);
     p.out = static_cast<TX*>(out);
-    p.step = step;
+    p.step = static_cast<const float*>(step);
     p.accumulate = accumulate != 0;
     return f2v::force_launch<T, TX>(p, static_cast<const int64_t*>(table),
                                     n_entries, kind, model,

@@ -31,6 +31,10 @@ Each kernel has
 * a launch count in ``launch_counts``, raised by one per kernel launch and
   by nothing else.
 
+The step is a float or a 0-d f32 tensor on the operands' device (a
+trainer's step buffer); the kernels read it from device memory, so that
+a launch captured in a CUDA graph reads each replay's step.
+
 A CUDA tensor never falls back to the plain version.  Every kernel takes
 rows of any multiple of ``ROW_ALIGN`` elements up to ``KERNEL_MAX_DIM``
 (under tp, a rank's columns), 16-byte aligned: the trainers hold X at
@@ -54,6 +58,7 @@ kernel rounds the same way (f32 accumulation, cast to ``xi.dtype``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -196,6 +201,29 @@ def _table_ptr(fn, device):
     return forces.device_sm_table(device).data_ptr()
 
 
+def _step_scalar(step, device) -> torch.Tensor:
+    """The step as the kernels read it, a 0-d f32 tensor on ``device``:
+    ``step`` itself when it is one (a trainer's step buffer, whose value a
+    captured launch reads at each replay), else the f32 value's scalar,
+    made once (``_float_step``) so that a float costs a launch no fill."""
+    if isinstance(step, torch.Tensor):
+        _require(step.dtype == torch.float32 and step.dim() == 0
+                 and step.device == device,
+                 f"a tensor step must be a 0-d float32 tensor on {device}, "
+                 f"got {step.dtype} {tuple(step.shape)} on {step.device}")
+        return step
+    return _float_step(device, int(np.float32(step).view(np.uint32)))
+
+
+@functools.lru_cache(maxsize=64)
+def _float_step(device, bits: int) -> torch.Tensor:
+    """A 0-d f32 tensor on ``device`` holding the f32 with these bits,
+    never written again (a launch may still read an evicted one: its
+    memory goes back to its stream, after the launch)."""
+    return torch.full((), float(np.uint32(bits).view(np.float32)),
+                      dtype=torch.float32, device=device)
+
+
 def _slot_mask(idx, deg):
     """[C, K, 1] bool: slot k of row r is real (k < deg[r])."""
     k = idx.shape[1]
@@ -259,14 +287,15 @@ def _launch_edge(model, x, xg, nbr, deg, xi_row, invd, step, out,
     _require(dev.type == "cuda", f"no kernel for device {dev}")
     _check_cuda_operands(x.shape[1], x, xg, out)
     lib = _build.load_library()
+    step = _step_scalar(step, dev)
     with torch.cuda.device(dev):
         err = lib.f2v_ell_edge_force(
             x.data_ptr(), xg.data_ptr(), _code(xg), _code(x),
             nbr.data_ptr(), deg.data_ptr(), xi_row.data_ptr(),
-            invd.data_ptr(), _table_ptr(model.edge_coeff, dev), float(step),
-            out.data_ptr(), int(accumulate), table.ctypes.data,
-            table.shape[0], x.shape[1], _EDGE_MODEL_IDS[model.edge_coeff],
-            _stream(dev))
+            invd.data_ptr(), _table_ptr(model.edge_coeff, dev),
+            step.data_ptr(), out.data_ptr(), int(accumulate),
+            table.ctypes.data, table.shape[0], x.shape[1],
+            _EDGE_MODEL_IDS[model.edge_coeff], _stream(dev))
     _build.check(lib, "ell_edge_force", err)
     launch_counts["ell_edge_force"] += 1
 
@@ -280,8 +309,9 @@ def ell_edge_force(model: ForceModel, x, xg, nbr, deg, xi_row, invd, step,
     shard's ``[x_loc | hot | halo]``, m ≥ n); nbr [C, K] int32 rows of xg; deg
     [C] int32 valid slots per row; xi_row [C] int32 row of x (and invd) each
     bucket row uses (the bucket's own rows, or the owners of hub virtual rows);
-    invd [n] in x's dtype; step a float.  Writes into ``out`` [C, D] of x's
-    dtype if given; returns it.  The kernel does not bounds-check ``nbr`` or
+    invd [n] in x's dtype; step a float or a 0-d f32 tensor on x's device
+    (``_step_scalar``).  Writes into ``out`` [C, D] of x's dtype if given;
+    returns it.  The kernel does not bounds-check ``nbr`` or
     ``xi_row`` (``edge_work_table`` checks a table's once).  One launch of the
     table kernel, over a one-entry table.
     """
@@ -429,10 +459,11 @@ def ell_edge_force_table(model: ForceModel, x, xg, table: EdgeWorkTable,
     x [table.n_pad, D] f32, bf16 or f16, xg [table.n_gather, D] of any of them
     with an f32 x, else of x's dtype, the gather table (x's replica unless the
     table was built with ``n_gather``), invd [table.n_pad] in x's dtype, step a
-    float.  Writes into ``out`` [table.out_rows, D] of x's dtype if given
-    (every row, or with a ``partial`` table its entries' rows, which then needs
-    ``out``); with ``accumulate`` adds into the entries' rows of ``out``
-    instead (one add per element, as ``out.add_(sum)`` makes); returns it.
+    float or a 0-d f32 tensor on x's device.  Writes into ``out``
+    [table.out_rows, D] of x's dtype if given (every row, or with a
+    ``partial`` table its entries' rows, which then needs ``out``); with
+    ``accumulate`` adds into the entries' rows of ``out`` instead (one add
+    per element, as ``out.add_(sum)`` makes); returns it.
     """
     _check_edge_operands(model, x, xg, invd)
     _require(x.shape[0] == table.n_pad,
@@ -511,8 +542,9 @@ def grouped_rep_force(model: ForceModel, group: int, xi, sg, step, *,
 
     xi [C, D] f32, bf16 or f16, row r in group r // group; sg [ng, ns, D] of
     any of them with an f32 xi, else of xi's dtype, per-group sample rows, ng ≥
-    ceil(C / group); step a float.  rep, the f32 sum over the samples rounded
-    to xi's dtype, goes out by ``mode`` (``REP_MODES``):
+    ceil(C / group); step a float or a 0-d f32 tensor on xi's device.  rep,
+    the f32 sum over the samples rounded to xi's dtype, goes out by ``mode``
+    (``REP_MODES``):
 
     * ``store``: returns rep, a new [C, D] tensor of xi's dtype;
     * ``add``: adds rep into ``out`` [C, D] (``out.add_(rep)`` bit for
@@ -549,11 +581,12 @@ def grouped_rep_force(model: ForceModel, group: int, xi, sg, step, *,
     part = (torch.empty((c, dim), dtype=torch.float32, device=dev)
             if chunks > 1 else None)
     lib = _build.load_library()
+    step = _step_scalar(step, dev)
     with torch.cuda.device(dev):
         err = lib.f2v_grouped_rep_force(
             xi.data_ptr(), sg.data_ptr(), _code(sg), _code(xi),
-            _table_ptr(model.sample_force, dev), float(step), out.data_ptr(),
-            None if upd is None else upd.data_ptr(),
+            _table_ptr(model.sample_force, dev), step.data_ptr(),
+            out.data_ptr(), None if upd is None else upd.data_ptr(),
             None if part is None else part.data_ptr(), REP_MODES.index(mode),
             c, group, ns, dim, _SAMPLE_MODEL_IDS[model.sample_force],
             _stream(dev))
@@ -601,9 +634,9 @@ def ell_sample_force(model: ForceModel, x, xg, idx, deg, xi_row, step,
     x's dtype, the table the samples come from: x's replica, or other rows (the
     vertex schedule's ``[S, D]`` pool); idx [C, K] int32 rows of xg; deg [C]
     int32 valid samples per row; xi_row [C] int32 row of x each row uses; step
-    a float.  Writes into ``out`` [C, D] of x's dtype if given, or with
-    ``accumulate`` adds into it (one add per element, as ``out.add_(sum)``
-    makes); returns ``out``.  The kernel does not bounds-check ``idx`` or
+    a float or a 0-d f32 tensor on x's device.  Writes into ``out`` [C, D] of
+    x's dtype if given, or with ``accumulate`` adds into it (one add per
+    element, as ``out.add_(sum)`` makes); returns ``out``.  The kernel does not bounds-check ``idx`` or
     ``xi_row``: they must index rows of ``xg`` and ``x`` (the callers check
     injected ids where they enter, as ``VertexShardedForce2Vec.run_iteration``
     does).  On the CPU, where it costs no read back from a device, the wrapper
@@ -637,12 +670,13 @@ def ell_sample_force(model: ForceModel, x, xg, idx, deg, xi_row, step,
     _require(dev.type == "cuda", f"no kernel for device {dev}")
     _check_cuda_operands(dim, x, xg, out)
     lib = _build.load_library()
+    step = _step_scalar(step, dev)
     with torch.cuda.device(dev):
         err = lib.f2v_ell_sample_force(
             x.data_ptr(), xg.data_ptr(), _code(xg), _code(x),
             idx.data_ptr(), deg.data_ptr(), xi_row.data_ptr(),
-            _table_ptr(model.sample_force, dev), float(step), out.data_ptr(),
-            int(accumulate), c, k, dim,
+            _table_ptr(model.sample_force, dev), step.data_ptr(),
+            out.data_ptr(), int(accumulate), c, k, dim,
             _SAMPLE_MODEL_IDS[model.sample_force], _stream(dev))
     _build.check(lib, "ell_sample_force", err)
     launch_counts["ell_sample_force"] += 1
@@ -814,12 +848,13 @@ def tp_pair_force(model: ForceModel, kind: str, x, xg, table: EdgeWorkTable,
     _check_aligned(out)
     fn = model.edge_coeff if kind == "edge" else model.sample_force
     lib = _build.load_library()
+    step = _step_scalar(step, dev)
     with torch.cuda.device(dev):
         err = lib.f2v_tp_pair_force(
             x.data_ptr(), xg.data_ptr(), _code(xg), _code(x),
             table.nbr.data_ptr(), table.deg.data_ptr(),
             table.xi_row.data_ptr(), invd.data_ptr(), _table_ptr(fn, dev),
-            a.data_ptr(), float(step), out.data_ptr(), int(accumulate),
+            a.data_ptr(), step.data_ptr(), out.data_ptr(), int(accumulate),
             table.entries.ctypes.data, table.entries.shape[0], x.shape[1],
             k, mid, _stream(dev))
     _build.check(lib, "tp_pair_force", err)

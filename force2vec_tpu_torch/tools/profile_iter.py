@@ -18,21 +18,26 @@ or float16, and with ``--gather-dtype`` the gather replica's: by default
 the bench's bf16 replica for an f32 X and X itself for the others, no
 cast; ``SyncForce2Vec._replica`` says what the other pairs gather) and
 measures, on the kernel
-path, an iteration as ``train()`` runs it (for walk models, the walk
-engine's draw included):
+path, an iteration as ``run_iteration`` runs it and as ``train()`` runs
+it (for walk models, the walk engine's draw included):
 
 * three times each, since the host's speed varies from one moment to the
-  next: ``ms_per_iter``, CUDA events over back-to-back ``run_iteration``
-  calls; ``host_enqueue_ms``, host time to enqueue one iteration, without
-  a sync; ``queued_device_ms``, CUDA events over iterations queued behind
-  a sleep kernel, so that the device never waits for the host: the
-  iteration's time once launches are free;
+  next, for ``run_iteration`` (eager launches, injected negatives) and for
+  ``run_span`` (what ``train()`` runs: one CUDA graph replay an iteration,
+  drawing its own negatives; ``span``): ``ms_per_iter``, CUDA events over
+  back-to-back iterations; ``host_enqueue_ms``, host time to enqueue one
+  iteration, without a sync; ``queued_device_ms``, CUDA events over
+  iterations queued behind a sleep kernel, so that the device never waits
+  for the host: the iteration's time once launches are free;
 * ``edge_wrapper_host_us``: host time of the iteration's one
   ``ell_edge_force`` call: over the layout's work table, or over the walk
   table (its checks, the device guard, the ctypes launch);
-* ``device``: from ``torch.profiler``, each device kernel's time and
-  launches per iteration, their sum ``busy_ms`` per iteration, the profiled
-  wall time per iteration, and ``idle_share = 1 - busy / wall``;
+* ``device`` (``run_iteration``) and ``span_device`` (``run_span``): from
+  ``torch.profiler``, each device kernel's time and launches per
+  iteration, their sum ``busy_ms`` per iteration, the profiled wall time
+  per iteration, ``idle_share = 1 - busy / wall``, and the host's launch
+  calls per iteration (``host_launches``: kernel and graph launches,
+  async copies and fills, ``LAUNCH_APIS``);
 * ``edge_g_rows_per_s``: the edge kernel's neighbour rows (the graph's
   edges, or the walks' steps) per second of its device time;
 * ``split``: ``split_stats()``, and with the split each of the two edge
@@ -41,7 +46,8 @@ engine's draw included):
   pair queued.
 
 Every line names the card and its power limit.  ``--trace`` writes the
-profiler's Chrome trace; ``--json`` writes the numbers.
+profiler's Chrome trace of the ``run_span`` window; ``--json`` writes the
+numbers.
 """
 
 from __future__ import annotations
@@ -63,6 +69,11 @@ from force2vec_tpu_torch.tools import (BENCH_CONFIG, HUB_WIDTH, MIN_WIDTH,
                                       card_name_and_power, cuda_ms,
                                       queued_device_ms)
 from force2vec_tpu_torch.train.sync import SyncForce2Vec
+
+# the host's launch calls a profiled window counts
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+               "cudaMemsetAsync")
 
 
 def host_ms(fn, reps: int) -> float:
@@ -87,6 +98,27 @@ def device_breakdown(prof, iters: int) -> dict:
             calls[e.name] += 1 / iters
     return {name: {"ms_per_iter": ms[name], "launches_per_iter": calls[name]}
             for name, _ in ms.most_common()}
+
+
+def profile_window(fn, iters: int) -> dict:
+    """``fn`` (``iters`` iterations) under ``torch.profiler``: each device
+    kernel's ms and launches per iteration (``device_breakdown``), their
+    sum ``busy_ms``, the window's wall ms per iteration, the idle share
+    and the host's launch calls per iteration (``LAUNCH_APIS``)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / iters
+    kernels = device_breakdown(prof, iters)
+    busy = sum(k["ms_per_iter"] for k in kernels.values())
+    launches = sum(1 for e in prof.events() if e.name in LAUNCH_APIS)
+    return {"kernels": kernels, "busy_ms": busy, "profiled_wall_ms": wall,
+            "idle_share": 1.0 - busy / wall if kernels else None,
+            "host_launches": launches / iters}, prof
 
 
 def real_slots(table) -> int:
@@ -184,8 +216,21 @@ def main(argv=None) -> int:
         fv.run_iteration(x, negs,
                          walks=fv.draw_walks(gen) if is_walk else None)
 
-    for _ in range(5):  # build, load and warm up
+    xs, done = fv.init_embedding(seed=1), [0]
+
+    def span_iteration():  # the next iteration of one run, as train() runs
+        fv.run_span(xs, 1, 1, done[0])
+        done[0] += 1
+
+    for _ in range(5):  # build, load and warm up (the span: and capture)
         iteration()
+        span_iteration()
+    g = fv.span_graph
+    res_graph = {"capture_s": g.capture_seconds,
+                 "pool_mb": g.pool_bytes / 2**20, "launches": g.counts}
+    print(f"run_span graph: captured in {g.capture_seconds:.3f} s, pool "
+          f"{res_graph['pool_mb']:.1f} MB, launches per replay {g.counts} "
+          f"[{card}]", flush=True)
     # the host cost of the path's one edge launch
     xg = fv._replica(x)
     if is_walk:  # over the walk table
@@ -204,11 +249,14 @@ def main(argv=None) -> int:
     res = {"card": card, "model": cfg.model, "n": args.n, "dim": cfg.dim,
            "dtype": cfg.dtype, "gather_dtype": cfg.gather_dtype,
            "per_vertex_samples": cfg.per_vertex_samples,
-           "split": {"stats": stats}, "repeats": []}
+           "split": {"stats": stats}, "span_graph": res_graph,
+           "repeats": []}
     for _ in range(3):
-        r = {"ms_per_iter": cuda_ms(iteration, args.iters),
-             "host_enqueue_ms": host_ms(iteration, args.iters),
-             "queued_device_ms": queued_device_ms(iteration, args.iters)}
+        r = {}
+        for tag, fn in (("", iteration), ("span_", span_iteration)):
+            r[tag + "ms_per_iter"] = cuda_ms(fn, args.iters)
+            r[tag + "host_enqueue_ms"] = host_ms(fn, args.iters)
+            r[tag + "queued_device_ms"] = queued_device_ms(fn, args.iters)
         res["repeats"].append(r)
         print(" ".join(f"{k}={v:.4f}" for k, v in r.items()) + f" [{card}]",
               flush=True)
@@ -218,33 +266,26 @@ def main(argv=None) -> int:
     print(f"edge_wrapper_host_us={res['edge_wrapper_host_us']:.2f} [{card}]",
           flush=True)
 
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.iters):
-            iteration()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / args.iters
-    kernels = device_breakdown(prof, args.iters)
-    busy = sum(k["ms_per_iter"] for k in kernels.values())
-    res["device"] = {"kernels": kernels, "busy_ms": busy,
-                     "profiled_wall_ms": wall,
-                     "idle_share": 1.0 - busy / wall if kernels else None}
-    if not kernels:
-        print("the profiler recorded no device events", flush=True)
-    edge_ms = sum(k["ms_per_iter"] for name, k in kernels.items()
-                  if "ell_edge_force_kernel" in name)
-    res["edge_g_rows_per_s"] = steps / edge_ms / 1e6 if edge_ms else None
-    print(f"edge kernel: {edge_ms:.4f} ms/iter of device time for {steps} "
-          f"neighbour rows, {res['edge_g_rows_per_s']} G rows/s [{card}]",
-          flush=True)
-    for name, k in kernels.items():
-        print(f"  device {k['ms_per_iter']:.4f} ms/iter  launches/iter "
-              f"{k['launches_per_iter']:.1f}  {name[:110]}", flush=True)
-    print(f"profiled wall ms/iter={wall:.4f} device busy ms/iter={busy:.4f} "
-          f"idle share={res['device']['idle_share']} [{card}]", flush=True)
+    for key, fn in (("device", iteration), ("span_device", span_iteration)):
+        res[key], prof = profile_window(
+            lambda: [fn() for _ in range(args.iters)], args.iters)
+        d, kernels = res[key], res[key]["kernels"]
+        if not kernels:
+            print("the profiler recorded no device events", flush=True)
+        edge_ms = sum(k["ms_per_iter"] for name, k in kernels.items()
+                      if "ell_edge_force_kernel" in name)
+        d["edge_g_rows_per_s"] = steps / edge_ms / 1e6 if edge_ms else None
+        print(f"{key}: edge kernel {edge_ms:.4f} ms/iter of device time for "
+              f"{steps} neighbour rows, {d['edge_g_rows_per_s']} G rows/s "
+              f"[{card}]", flush=True)
+        for name, k in kernels.items():
+            print(f"  device {k['ms_per_iter']:.4f} ms/iter  launches/iter "
+                  f"{k['launches_per_iter']:.1f}  {name[:110]}", flush=True)
+        print(f"{key}: profiled wall ms/iter={d['profiled_wall_ms']:.4f} "
+              f"device busy ms/iter={d['busy_ms']:.4f} idle share="
+              f"{d['idle_share']} host launches/iter={d['host_launches']:.1f}"
+              f" [{card}]", flush=True)
+    res["edge_g_rows_per_s"] = res["device"]["edge_g_rows_per_s"]
     if args.trace:
         prof.export_chrome_trace(args.trace)
     if args.json:

@@ -93,6 +93,12 @@ ranks:
   for each force on its slice of them (the hot table's adding into the
   cold's rows).  The JAX package runs that
   step in jnp ops (Pallas off at tp > 1).
+
+``run_span`` and ``train()`` run one iteration a CUDA graph replay on a
+card at one rank (``train/graph.py``, the counterpart of the JAX package's
+one-program run): the step comes from a device buffer, which the kernels
+read through a pointer, and the draws from the trainer's generator inside
+the graph.  On the CPU and under dp or tp they run the eager loop.
 """
 
 from __future__ import annotations
@@ -112,6 +118,7 @@ from force2vec_tpu_torch.graphs.csr import Graph, SyncLayout
 from force2vec_tpu_torch.models.forces import get_model
 from force2vec_tpu_torch.ops import force_kernels
 from force2vec_tpu_torch.ops.segment import add_rows
+from force2vec_tpu_torch.train.graph import IterationGraph, StepBuffer
 from force2vec_tpu_torch.train.trainer import (TrainConfig, iteration_seed,
                                                round_to, step_at)
 
@@ -281,6 +288,12 @@ class SyncForce2Vec:
         )
         self.lr = config.resolve_lr(self.model)
         self._span_gen = torch.Generator(device=self.device)
+        # run_span on a card at one rank: the iteration as a CUDA graph
+        # (train/graph.py) reading the step from this buffer
+        self._step_buf = StepBuffer(self.device)
+        self.span_graph = IterationGraph(self._prepare_iteration,
+                                         self._static_iteration,
+                                         self._span_gen)
 
         lay, dev = self.layout, self.device
         self.inv_deg = torch.as_tensor(
@@ -753,8 +766,10 @@ class SyncForce2Vec:
         return x.to(gdt).to(x.dtype)
 
     def _iteration(self, x: torch.Tensor, negs: torch.Tensor,
-                   walks: Optional[torch.Tensor], step: float,
+                   walks: Optional[torch.Tensor], step,
                    plain: bool) -> torch.Tensor:
+        """One iteration on X in place; ``step`` a float or the 0-d f32
+        step buffer (the same bits either way)."""
         xg = self._replica(x)
         upd = self._forces(x, xg, negs, walks, step, plain)
         if self.rep_mode == "apply":  # the repulsion launch applied X
@@ -762,11 +777,37 @@ class SyncForce2Vec:
         if self.model.update == "energy":
             fnorm = self._rsum(upd * upd)
             safe = torch.where(fnorm > 0, fnorm, 1.0)
-            upd.mul_(torch.where(fnorm > 0, step / torch.sqrt(safe), 0.0))
+            # step / √fnorm, rounded as torch rounds a float step over a
+            # tensor, which a tensor step (the graph's) rounds the same way
+            upd.mul_(torch.where(fnorm > 0,
+                                 torch.sqrt(safe).reciprocal() * step, 0.0))
         return x.add_(upd)
 
     def _step(self, it: int) -> float:
         return step_at(self.model, self.lr, it, self._dtype)
+
+    def _draw(self, gen: torch.Generator):
+        """An iteration's negatives (``run_iteration``'s shape, ids in
+        ``[0, n-1)``, the JAX package's range) and, for walk models, its
+        walks (``draw_walks``), drawn from ``gen``."""
+        negs = torch.randint(0, max(self.layout.n - 1, 1), self._neg_shape,
+                             generator=gen, dtype=torch.int32,
+                             device=self.device)
+        walks = (self.draw_walks(gen) if self.model.attraction == "walk"
+                 else None)
+        return negs, walks
+
+    def _prepare_iteration(self, seed: int, it: int) -> None:
+        """The host's part of iteration ``it`` of a graph span: its step
+        into the step buffer, the generator re-seeded for its draws."""
+        self._step_buf.write(self._step(it))
+        self._span_gen.manual_seed(iteration_seed(seed, it))
+
+    def _static_iteration(self, x: torch.Tensor) -> None:
+        """The iteration a graph span captures: the draws from the
+        re-seeded generator, the step from the step buffer."""
+        negs, walks = self._draw(self._span_gen)
+        self._iteration(x, negs, walks, self._step_buf.tensor, plain=False)
 
     # -- public API ----------------------------------------------------------
 
@@ -804,7 +845,9 @@ class SyncForce2Vec:
             if tuple(walks.shape) != want:
                 raise ValueError(f"walks {tuple(walks.shape)} != {want}")
             walks = walks.to(torch.int32).contiguous()
-        step = round_to(self.lr if step is None else step, self._dtype)
+        # in the step buffer: the kernels read the step from device memory
+        step = self._step_buf.write(
+            round_to(self.lr if step is None else step, self._dtype))
         return self._iteration(x, negs.to(torch.int32).contiguous(), walks,
                                step, plain)
 
@@ -812,19 +855,26 @@ class SyncForce2Vec:
                  iter_offset: int = 0) -> torch.Tensor:
         """Iterations ``[iter_offset, iter_offset + num_iters)`` of a run
         seeded with ``seed``, on the padded X in place; returns it.  Each
-        iteration draws its negatives (``run_iteration``'s shape, ids in
-        ``[0, n-1)``, the JAX package's range), then, for walk models, its
-        walks (``draw_walks``), from one reused generator re-seeded from
-        ``(seed, absolute iteration)``: spans compose into the straight
-        run."""
+        iteration draws its negatives, then, for walk models, its walks
+        (``_draw``), from one reused generator re-seeded from ``(seed,
+        absolute iteration)``: spans compose into the straight run.
+
+        On a card at one rank the iteration is a CUDA graph (``span_graph``,
+        ``train/graph.py``), captured once per X and replayed once per
+        iteration; on the CPU, and under dp or tp (whose NCCL collectives
+        are not captured), the eager loop (``_run_span_eager``)."""
+        if self.device.type != "cuda" or self.spmd.n_dp * self.spmd.n_tp > 1:
+            return self._run_span_eager(x, seed, num_iters, iter_offset)
+        return self.span_graph.run(x, seed, num_iters, iter_offset)
+
+    def _run_span_eager(self, x: torch.Tensor, seed: int, num_iters: int,
+                        iter_offset: int = 0) -> torch.Tensor:
+        """``run_span`` as a Python loop of eager launches, each step a
+        float: the reference the graph is held against."""
         gen = self._span_gen
-        hi = max(self.layout.n - 1, 1)
-        is_walk = self.model.attraction == "walk"
         for it in range(iter_offset, iter_offset + num_iters):
             gen.manual_seed(iteration_seed(seed, it))
-            negs = torch.randint(0, hi, self._neg_shape, generator=gen,
-                                 dtype=torch.int32, device=self.device)
-            walks = self.draw_walks(gen) if is_walk else None
+            negs, walks = self._draw(gen)
             self._iteration(x, negs, walks, self._step(it), plain=False)
         return x
 

@@ -8,7 +8,9 @@ and batch b+1 observes them (sample/algorithms.cpp:569-639).
 One iteration is a Python loop over the batches, each a fixed, short
 sequence of torch operations on the device and no read back to the host
 (every batch's edge span is computed on the host when the trainer is
-built, ``DeviceGraph.batch_spans``):
+built, ``DeviceGraph.batch_spans``), so that on a card at one rank
+``run_span`` and ``train()`` capture the whole iteration, every batch of
+it, as one CUDA graph and replay it (``train/graph.py``):
 
 * the batch's rows are a view ``[B, D]`` of X;
 * attraction over the batch's CSR edges (one contiguous ``colids`` span):
@@ -55,6 +57,7 @@ from force2vec_tpu_torch.ops.segment import (SEGMENT_MODES,
 from force2vec_tpu_torch.sampling.negative import (per_vertex_windows,
                                                    sample_negative_ids)
 from force2vec_tpu_torch.sampling.walks import sample_walks
+from force2vec_tpu_torch.train.graph import IterationGraph, StepBuffer
 
 # Bytes of one [B, T, D] f32 temporary of the exact repulsion's column tile
 _REP_TILE_BYTES = 32 << 20
@@ -196,6 +199,11 @@ class Force2Vec:
             dg.n_pad, config.rep_chunk,
             _REP_TILE_BYTES // (bsz * config.dim * 4)))
         self._gen = torch.Generator(device=dev)
+        # run_span on a card at one rank: the iteration as a CUDA graph
+        # (train/graph.py) reading the step from this buffer
+        self._step_buf = StepBuffer(dev)
+        self.span_graph = IterationGraph(self._prepare_iteration,
+                                         self._static_iteration, self._gen)
 
     # -- embedding layout ---------------------------------------------------
 
@@ -303,21 +311,25 @@ class Force2Vec:
             fnorm = (kw["rsum"](acc * acc) if kw
                      else torch.sum(acc * acc, dim=-1, keepdim=True))
             safe = torch.where(fnorm > 0, fnorm, 1.0)
-            acc.mul_(torch.where(fnorm > 0, step / torch.sqrt(safe), 0.0))
+            # step / √fnorm, rounded as torch rounds a float step over a
+            # tensor, which a tensor step (the graph's) rounds the same way
+            acc.mul_(torch.where(fnorm > 0,
+                                 torch.sqrt(safe).reciprocal() * step, 0.0))
         xb.add_(acc)
 
     def _iteration(self, x, negs, walks, step) -> torch.Tensor:
-        # the JAX package's step, in X's dtype (trainer.py:310)
-        step = round_to(step, self._dtype)
+        """Every batch of one iteration on X in place; ``step`` a float,
+        rounded here to X's dtype (the JAX package's step, trainer.py:310),
+        or the step buffer, which holds a rounded step (the same bits)."""
+        if not isinstance(step, torch.Tensor):
+            step = round_to(step, self._dtype)
         for b in range(self.dg.num_batches):
             self._batch(x, b, negs, walks, step)
         return x
 
-    def _draw(self, seed: int, it: int):
-        """Iteration ``it``'s negatives and walks, from the reused generator
-        re-seeded with ``iteration_seed(seed, it)``."""
-        dg, cfg, model, gen = self.dg, self.config, self.model, self._gen
-        gen.manual_seed(iteration_seed(seed, it))
+    def _draw(self, gen: torch.Generator):
+        """An iteration's negatives and walks, drawn from ``gen``."""
+        dg, cfg, model = self.dg, self.config, self.model
         negs = None if model.repulsion == "all" else sample_negative_ids(
             gen, dg.num_batches, dg.batch_size, cfg.ns, dg.n,
             per_vertex=cfg.per_vertex_samples, neg_range=model.neg_range)
@@ -368,12 +380,41 @@ class Force2Vec:
         """Iterations ``[iter_offset, iter_offset + num_iters)`` of a run
         seeded with ``seed``, on the padded X in place; returns it.  Each
         iteration draws from a generator re-seeded from ``(seed, absolute
-        iteration)``, so spans compose into the straight run."""
+        iteration)``, so spans compose into the straight run.
+
+        On a card at one rank the iteration, every batch of it, is a CUDA
+        graph (``span_graph``, ``train/graph.py``), captured once per X and
+        replayed once per iteration; on the CPU, and under dp or tp (whose
+        NCCL collectives are not captured), the eager loop
+        (``_run_span_eager``)."""
+        if self.device.type != "cuda" or self.spmd.n_dp * self.spmd.n_tp > 1:
+            return self._run_span_eager(x, seed, num_iters, iter_offset)
+        return self.span_graph.run(x, seed, num_iters, iter_offset)
+
+    def _step(self, it: int) -> float:
+        return step_at(self.model, self.lr, it, self._dtype)
+
+    def _run_span_eager(self, x: torch.Tensor, seed: int, num_iters: int,
+                        iter_offset: int = 0) -> torch.Tensor:
+        """``run_span`` as a Python loop of eager batches, each step a
+        float: the reference the graph is held against."""
         for it in range(iter_offset, iter_offset + num_iters):
-            negs, walks = self._draw(seed, it)
-            self._iteration(x, negs, walks,
-                            step_at(self.model, self.lr, it, self._dtype))
+            self._gen.manual_seed(iteration_seed(seed, it))
+            negs, walks = self._draw(self._gen)
+            self._iteration(x, negs, walks, self._step(it))
         return x
+
+    def _prepare_iteration(self, seed: int, it: int) -> None:
+        """The host's part of iteration ``it`` of a graph span: its step
+        into the step buffer, the generator re-seeded for its draws."""
+        self._step_buf.write(self._step(it))
+        self._gen.manual_seed(iteration_seed(seed, it))
+
+    def _static_iteration(self, x: torch.Tensor) -> None:
+        """The iteration a graph span captures: the draws from the
+        re-seeded generator, the step from the step buffer."""
+        negs, walks = self._draw(self._gen)
+        self._iteration(x, negs, walks, self._step_buf.tensor)
 
     def train(self, iters: int = 1200, seed: int = 1,
               x0: Optional[np.ndarray] = None, iters_per_call: int = 0,
