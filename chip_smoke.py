@@ -103,8 +103,7 @@ file:
     50 iterations with exact launch counts, each in the statistic it
     optimises against the JAX package's;
 22. (f) ``--checkpoint-every``, then ``--resume`` from the middle, on both
-    schedules: bit for bit the straight run on the batch schedule, within
-    a stated tolerance on the sync schedule; the sync schedule at dim 96
+    schedules: bit for bit the straight run; the sync schedule at dim 96
     (once refused) runs; then the refusals: the sync schedule above the
     kernels' cap (dim 1025), a coordinator without world size and rank,
     and more ranks than cards exit 2.
@@ -118,8 +117,10 @@ configuration with f32 gathers (the vertex schedule's):
     ``grouped_rep_force`` group of n_loc rows, ``ell_sample_force`` into
     a 128-row pool) against its plain version; one iteration against
     ``SyncForce2Vec``'s from the same X and negatives; its queued
-    ms/iteration beside main's and its metered phases; 50 training
-    iterations in ``shared`` and ``pool`` mode with exact launch counts
+    ms/iteration beside main's; its metered phases through
+    ``run_iteration`` (eager) and through ``run_span`` (the graph's
+    replays, timed by external event nodes); 50 training iterations in
+    ``shared`` and ``pool`` mode (graph replays) with exact launch counts
     and half the JAX vertex schedule's distance gap;
 24. (F2) the four shards of a P = 4 layout on this card: each shard's
     table assembled from a global X by ``hot_send`` and ``send_idx``,
@@ -146,8 +147,20 @@ configuration with f32 gathers (the vertex schedule's):
 27. (F4) with two or more cards, min(count, 4) NCCL ranks (even): a
     vertex iteration against F1's single-card result, and the sync
     iteration at dp = ranks and at tp = 2 against F5's, their launch
-    counts, exchange bytes and ms/iteration; with one card the script
-    says so and goes on (the CPU tests hold the ranks on gloo).
+    counts, exchange bytes and ms/iteration; then each multi-rank runner
+    (the vertex schedule at P = ranks: ``shared``, ``pool``, rwalk through
+    the ring and the a2a fetch, ``halo_stale``; sync at dp = ranks and at
+    tp = 2; batch at dp = ranks): ``run_span`` (one CUDA graph an
+    iteration, the NCCL collectives captured) against its eager loop bit
+    for bit on every rank, straight and in spans, with the same launch
+    and collective counts and one capture; per rank, ms per iteration
+    back to back and queued, three repeats each, graph and eager in
+    turns, the host's launch calls per iteration and the idle share; the
+    seconds the ranks took to leave their groups after the last result;
+    then ``--devices ranks`` through the command line (batch and vertex
+    schedules), exit 0 and the output written; with one card the script
+    says so and goes on (the CPU tests hold the ranks on gloo, the graphs'
+    code run uncaptured against the eager loops).
 
 path G, every width (``-dim`` any of 1 to ``force_kernels.KERNEL_MAX_DIM``,
 1024; the trainers hold X at the dim rounded up to 8):
@@ -286,32 +299,38 @@ iteration captured once per X and replayed, the step and the draws in
 device buffers; ``train/graph.py``), in a fresh process (``--path L``),
 after path J in the full run:
 
-52. (L1) every single-card configuration of both trainers: the sync
-    schedule's main path with f32, bf16 and f16 X and with the f16
+52. (L1) every single-card configuration of the three schedules: the
+    sync schedule's main path with f32, bf16 and f16 X and with the f16
     replica, ``-bs 1``, rwalk, sigmoid, the table σ, fr, linlog,
     forceatlas, dim 100 and the hot/cold split at the bench graph; the
-    batch schedule at the CLI's default (bench graph) and with bf16 and
-    f16 X, ``-bs 1``, sigmoid, rwalk and the layout family on a small
-    graph, and tdist_exact on a smaller one.  Each: two eager runs of
+    vertex schedule at P = 1 (``shared``, ``pool``, rwalk, ``halo_stale``
+    with its two tables, bf16 X) at the bench graph; the batch schedule at
+    the CLI's default (bench graph) and with bf16 and f16 X, ``-bs 1``,
+    sigmoid, rwalk and the layout family on a small graph, and
+    tdist_exact on a smaller one.  Each, in torch's default mode (and the
+    sync schedule again in its deterministic mode): two eager runs of
     L_ITERS iterations (``_run_span_eager``), ``train()`` (the graph) and
     ``run_span`` in spans on a new X, from one seed: the same launch
-    counts in all four; the graph's runs against the first eager run bit
-    for bit, and for the sync schedule with a hub (its owners' f32
-    ``index_add_`` adds with float atomics, in any order) within the two
-    eager runs' spread;
-53. (L2) planted faults on both trainers that the graph's bound must
-    catch: the step buffer written once and never refreshed (fr, whose
-    step decays every iteration) and the negatives drawn once and never
-    redrawn (tdist);
-54. (L3) main with f32, bf16 and f16 X, rwalk and the batch schedule at
-    the bench graph, the graph against the eager loop in turns: back to
+    counts in all four, the two eager runs bit for bit equal (the hub's
+    owner sums are ordered: main and fr among them), the graph's runs
+    against the first eager run bit for bit (``halo_stale``'s spans
+    against the eager loop in the same spans: each primes its first
+    iteration);
+53. (L2) planted faults that the graph's bound must catch: the step
+    buffer written once and never refreshed (fr, whose step decays every
+    iteration; the sync, batch and vertex schedules) and the negatives
+    drawn once and never redrawn (tdist; sync and batch);
+54. (L3) main with f32, bf16 and f16 X, rwalk, the vertex schedule at
+    P = 1 and the batch schedule at the bench graph, the graph against
+    the eager loop in turns: back to
     back and queued ms per iteration, host enqueue ms, the host's launch
     calls per iteration and the idle share (profiled windows), our
     kernels' device ms in each, capture seconds, the graph's pool beside
     the eager iteration's peak.
 
 ``python3 chip_smoke.py --path F`` builds the kernels and runs path F
-alone (a check of the multi-card schedules on a host with several cards);
+alone (a check of the multi-card schedules on a host with several cards,
+where F4 captures every multi-rank runner);
 ``--path G`` runs path G alone, ``--path H`` path H, ``--path I`` path I,
 ``--path J`` path J, ``--path K`` path K, ``--path L`` path L.
 
@@ -362,6 +381,7 @@ from force2vec_tpu_torch.graphs.tools import write_mtx
 from force2vec_tpu_torch.models.forces import MAXBOUND, get_model
 from force2vec_tpu_torch.ops import _build, force_kernels as fk
 from force2vec_tpu_torch.ops import probe_kernels as pk
+from force2vec_tpu_torch.ops.segment import hub_owner_sum
 from force2vec_tpu_torch.tools import (BENCH_CONFIG, HUB_WIDTH, MIN_WIDTH,
                                       card_name_and_power, cuda_ms, probes,
                                       queued_device_ms)
@@ -369,6 +389,7 @@ from force2vec_tpu_torch.tools.profile_iter import (device_breakdown,
                                                     profile_window)
 from force2vec_tpu_torch.train.sync import DeviceBucket, SyncForce2Vec
 from force2vec_tpu_torch.train.checkpoint import load_checkpoint
+from force2vec_tpu_torch.train.graph import IterationGraph
 from force2vec_tpu_torch.train.trainer import (Force2Vec, TrainConfig,
                                                iteration_seed, round_to)
 from force2vec_tpu_torch.utils.profiling import Meter
@@ -472,11 +493,9 @@ JAX_SIGMOID_DOT_GAP = 0.31968850592200765
 SIGMOID_DOT_MARGIN = 0.5 * JAX_SIGMOID_DOT_GAP
 JAX_FR_GAP = -0.1471681109139633
 FR_GAP_TOL = 0.5 * abs(JAX_FR_GAP)
-# (f): checkpoints every RESUME_ITERS // 3 iterations; the sync schedule's
-# resumed run is held to the straight run within its hub reduce's float
-# atomics (an index_add_ per iteration, in any order)
+# (f): checkpoints every RESUME_ITERS // 3 iterations; on both schedules
+# the resumed run is held to the straight run bit for bit
 RESUME_ITERS = 6
-SYNC_RESUME_TOL = 1e-4
 # path F: the JAX package's vertex schedule on one device, 50 iterations,
 # tdist, f32 (scripts/jax_quality_reference.py: tdist_vertex,
 # tdist_vertex_pool), the distance gap; the port's must pass half of it
@@ -484,6 +503,13 @@ JAX_VERTEX_GAP = 0.8214333572548669
 JAX_VERTEX_POOL_GAP = 0.8201282732186037
 F_SHARDS = 4  # F2: the shards of one layout run on one card
 F_MAX_RANKS = 4  # F4: NCCL ranks, one per card, where there are two or more
+# F4: each multi-rank runner's train() (the graph) against its eager loop,
+# straight and in spans of one X, over F4_ITERS iterations (3 and spans of
+# one for the batch schedule, whose eager iteration takes ~0.3 s), then
+# F4_REPEATS back-to-back and queued timings of each, in turns
+F4_ITERS = 10
+F4_SPANS = (4, 3, 3)
+F4_REPEATS = 3
 F_DP = 4  # F5: the dp slices of one sync layout run on one card
 F_TP = 2  # F5: gloo ranks sharing this card, each with its 1/tp of the dim
 # a tp rank's iteration: one tp_pair_partial over the attraction's and the
@@ -561,15 +587,13 @@ J_DTYPES = ((torch.float32, torch.bfloat16), (torch.float32, torch.float32),
 J_FAULT_DIMS = (100, 128)
 # path L, run_span and train() as a CUDA graph: L_ITERS iterations of each
 # configuration against the eager loop from the same seed, the same run in
-# spans, bit for bit.  The sync schedule's hub owners' index_add_ adds with
-# float atomics, in any order: two eager runs of main with f32 X differ by
-# ~1e-7 after 20 iterations and of the layout family by ~0.5 (its energy
-# step normalises each row's update: a difference in a row's last bits
-# turns its step, and repulsions of 1/r grow it), as much as a fault would
-# move it (the first chip runs of path L).  So the sync schedule is held
-# where two eager runs meet bit for bit, under torch's deterministic mode
-# (index_add_ as a sorted, ordered sum), and its default mode's eager
-# spread is reported beside it
+# spans, bit for bit, and two eager runs against each other, in torch's
+# default mode.  The hub owners' sums are ordered (ops/segment.py): while
+# they were float atomics, two eager runs of main with f32 X differed by
+# ~1e-7 after 20 iterations and of fr by up to 0.47 (its energy step
+# normalises each row's update: a difference in a row's last bits turns
+# its step).  The sync schedule is held again under torch's deterministic
+# mode, as it was while its default mode could not be
 L_ITERS = 20
 L_SPANS = (7, 7, 6)
 # (what, TrainConfig over the bench's, hot rows as a share of n): every
@@ -605,8 +629,19 @@ L_BATCH = (
     ("batch forceatlas", dict(model="forceatlas"), "small"),
     ("batch tdist_exact", dict(model="tdist_exact"), "exact"),
 )
+# (what, VertexShardedForce2Vec keywords, TrainConfig over the vertex
+# schedule's): the vertex schedule at P = 1 (one card, no process group) at
+# the bench graph
+L_VERTEX = (
+    ("vertex shared", {}, {}),
+    ("vertex pool", dict(sampling="pool"), {}),
+    ("vertex rwalk", {}, dict(model="rwalk")),
+    ("vertex halo_stale", dict(halo_stale=True), {}),
+    ("vertex bf16 X", {}, dict(dtype="bfloat16")),
+)
 # the configurations path L times, graph against eager
-L_TIMED = ("main f32 X", "main bf16 X", "main f16 X", "rwalk", "batch tdist")
+L_TIMED = ("main f32 X", "main bf16 X", "main f16 X", "rwalk", "batch tdist",
+           "vertex shared")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # The card's peaks for bound_ms (H100 SXM at 700 W): device memory, and
 # f32 outside the tensor cores.
@@ -907,7 +942,7 @@ def edge_phase(fv, x, xg, card):
     model; times the table launch back to back and queued."""
     bucket_ms = 0.0
     for b in fv.device_buckets:
-        kind = "hub" if b.owner_local is not None else "bucket"
+        kind = "hub" if b.owner_off is not None else "bucket"
         what = f"{kind} width {b.nbr.shape[1]}"
         e, ratio = check_edge(fv.model, x, xg, b, fv.inv_deg, fv.lr, what)
         check(e <= EDGE_TOL, f"ell_edge_force {what}: max |err| {e:.3e} > "
@@ -949,7 +984,7 @@ def edge_phase(fv, x, xg, card):
 
 def widest_bucket(fv):
     """The non-hub bucket with the most rows."""
-    return max((b for b in fv.device_buckets if b.owner_local is None),
+    return max((b for b in fv.device_buckets if b.owner_off is None),
                key=lambda b: b.nbr.shape[0])
 
 
@@ -2204,9 +2239,8 @@ def sync_quality_phase(graph, dev, card):
 def resume_phase(small_mtx, tmp, card):
     """(f) ``--checkpoint-every`` over RESUME_ITERS iterations, then
     ``--resume`` from the middle checkpoint, on both schedules, against a
-    straight run: bit for bit on the batch schedule, within
-    SYNC_RESUME_TOL on the sync schedule (its hub reduce adds with float
-    atomics).  Returns the runs' counts."""
+    straight run, bit for bit (the sync schedule's hub sums in a fixed
+    order).  Returns the runs' counts."""
     total = {}
     k = RESUME_ITERS // 3
     for schedule in ("batch", "sync"):
@@ -2238,12 +2272,8 @@ def resume_phase(small_mtx, tmp, card):
                 f"{it}: max |diff| {e:.3e}")
             check(it == RESUME_ITERS and np.isfinite(got).all(),
                   f"{schedule} {tag}: checkpoint at {it}")
-            if schedule == "batch":
-                check(np.array_equal(got, want), f"batch {tag}: not bit for "
-                                                 "bit the straight run")
-            else:
-                check(e <= SYNC_RESUME_TOL, f"sync {tag}: {e:.3e} > "
-                                            f"{SYNC_RESUME_TOL}")
+            check(np.array_equal(got, want), f"{schedule} {tag}: not bit for "
+                                             "bit the straight run")
     return total
 
 
@@ -2452,12 +2482,28 @@ def vertex_single_card_phase(graph, dev, card, main_queued_ms):
                        reps=10)
         say(f"vertex P=1 ms/iteration: queued {q_ms:.4f} (main path queued "
             f"{main_queued_ms:.4f}), back to back {k_ms:.4f} [{card}]")
+        # the phases of the eager iteration, then of each graph replay
+        # (the span's first iteration is the capture's eager warm-up)
         v.meter = Meter(dev)
-        v.run_span(xq, 1, 10)
+        for _ in range(10):
+            v.run_iteration(xq, pool)
         sec = v.meter.seconds
-        say("vertex P=1 metered phases, device ms per iteration: "
+        say("vertex P=1 metered phases (run_iteration, eager), device ms "
+            "per iteration: "
             + ", ".join(f"{k} {s * 100:.4f}" for k, s in sec.items())
             + f" [{card}]")
+        v.meter = Meter(dev)  # drops the graph: the capture records phases
+        v.run_span(xq, 1, 1)  # the capture, after its eager warm-up
+        replays = v.span_graph.meter = Meter(dev)  # the replays' alone
+        v.run_span(xq, 1, 10, 1)
+        sec = replays.seconds
+        say("vertex P=1 metered phases (run_span, 10 graph replays), "
+            "device ms per iteration: "
+            + ", ".join(f"{k} {s * 100:.4f}" for k, s in sec.items())
+            + f" [{card}]")
+        check(set(sec) == {"pool", "exchange", "free", "dep", "apply"}
+              and all(s > 0 for s in sec.values()),
+              f"vertex P=1: the graph's metered phases {sec}")
         v.meter = None
 
         edge_per = int(t.free is not None) + int(t.dep is not None)
@@ -2550,17 +2596,34 @@ def vertex_shards_phase(graph, dev, card, x_host, pool, want):
 def vertex_cli_phase(mtx, tmp, card):
     """F3: ``--schedule vertex --devices 1``, and with ``-bs 1`` (pool
     sampling), through the command line: the JAX CLI's output name and
-    ``Results.txt`` row, exact launch counts."""
+    ``Results.txt`` row, exact launch counts, and ``train()`` replaying a
+    CUDA graph (one capture a run, counted on ``IterationGraph``)."""
     total = {}
+    capture = IterationGraph._capture
+    captures = []
+
+    def counted(graph, *args):
+        captures.append(1)
+        return capture(graph, *args)
+
     for extra, mode in (([], "shared"), (["-bs", "1"], "pool")):
         out = os.path.join(tmp, f"vertex_{mode}")
         expect = {"ell_edge_force": 2 * VERTEX_CLI_ITERS,
                   "grouped_rep_force": VERTEX_CLI_ITERS * (mode == "shared"),
                   "ell_sample_force": VERTEX_CLI_ITERS * (mode == "pool")}
-        counts, _ = cli_run(["-input", mtx, "-output", out, "-option", "5",
-                             "-iter", str(VERTEX_CLI_ITERS), "--schedule",
-                             "vertex", "--devices", "1", *extra],
-                            expect, f"--schedule vertex {mode}", card)
+        captures.clear()
+        IterationGraph._capture = counted
+        try:
+            counts, _ = cli_run(["-input", mtx, "-output", out, "-option",
+                                 "5", "-iter", str(VERTEX_CLI_ITERS),
+                                 "--schedule", "vertex", "--devices", "1",
+                                 *extra],
+                                expect, f"--schedule vertex {mode}", card)
+        finally:
+            IterationGraph._capture = capture
+        say(f"cli --schedule vertex {mode}: {len(captures)} CUDA graph "
+            f"capture(s), the other iterations replays")
+        check(len(captures) == 1, f"F3 {mode}: {len(captures)} captures")
         add_counts(total, counts)
         cli_outputs(out, f"bench.mtxF2VTDIST256D128IT{VERTEX_CLI_ITERS}NS5"
                     ".embd", ["tdist", "Init", f"Iteration:{VERTEX_CLI_ITERS}",
@@ -2569,10 +2632,148 @@ def vertex_cli_phase(mtx, tmp, card):
     return total
 
 
+def _aligned(dev):
+    """Every rank's device idle and the ranks met: timings start together."""
+    torch.cuda.synchronize(dev)
+    dist.barrier(device_ids=[dev.index])
+    torch.cuda.synchronize(dev)
+
+
+def f4_queued(fn, reps, dev):
+    """``queued_device_ms(fn, reps)`` on every rank, or with 3 reps where
+    any rank's host could not queue ``reps`` calls within the sleep (the
+    ranks agree by an ``all_reduce``, so that each issues the same
+    collectives); None where 3 did not fit either."""
+    for k in (reps, 3):
+        try:
+            ms, ok = queued_device_ms(fn, k), 1
+        except RuntimeError:
+            torch.cuda.synchronize(dev)
+            ms, ok = None, 0
+        flag = torch.tensor([ok], device=dev)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+        if int(flag) == 1:
+            return ms
+    return None
+
+
+def f4_check(fv, dev) -> dict:
+    """F4, one runner on one rank: from one X, ``run_span`` (the graph,
+    captured once on a work buffer) against ``_run_span_eager`` straight,
+    and in spans (against the eager loop in the same spans with
+    ``halo_stale``), with each run's launch counts (the tp pair's
+    ``all_reduce`` among them); then F4_REPEATS back-to-back
+    and queued ms per iteration of each, in turns, and a profiled window
+    of each (the host's launch calls per iteration, the idle share).  The
+    eager batch schedule is not queued: its enqueue outlasts the sleep."""
+    x0 = fv.init_embedding(seed=1)
+    batch = isinstance(fv, Force2Vec)
+    iters, spans = (3, (1, 1, 1)) if batch else (F4_ITERS, F4_SPANS)
+    stale = getattr(fv, "halo_stale", False)
+    work = x0.clone()
+
+    def run(fn, ks):
+        work.copy_(x0)
+        reset_counts()
+        done = 0
+        for k in ks:
+            fn(work, 1, k, done)
+            done += k
+        torch.cuda.synchronize(dev)
+        return work.clone(), nonzero(read_counts())
+
+    eager, c_eager = run(fv._run_span_eager, (iters,))
+    graph, c_graph = run(fv.run_span, (iters,))
+    in_spans, c_spans = run(fv.run_span, spans)
+    want = run(fv._run_span_eager, spans)[0] if stale else eager
+    g = fv.span_graph
+    rec = dict(graph_vs_eager=max_err(graph, eager),
+               spans_vs_eager=max_err(in_spans, want),
+               moved=max_err(eager, x0),
+               finite=bool(torch.isfinite(graph).all()),
+               counts_eager=c_eager, counts_graph=c_graph,
+               counts_spans=c_spans, per_replay=g.counts,
+               captures=g.captures, capture_s=g.capture_seconds,
+               pool_mb=g.pool_bytes / 2**20,
+               b2b_ms={"graph": [], "eager": []},
+               queued_ms={"graph": [], "eager": []})
+    modes = {"graph": lambda k: fv.run_span(work, 1, k, 1),
+             "eager": lambda k: fv._run_span_eager(work, 1, k, 1)}
+    for mode in ("eager", "graph", "graph", "eager") * F4_REPEATS:
+        if len(rec["b2b_ms"][mode]) == F4_REPEATS:
+            continue
+        _aligned(dev)
+        rec["b2b_ms"][mode].append(
+            cuda_ms(lambda: modes[mode](iters), reps=1, warmup=1) / iters)
+        if batch and mode == "eager":
+            continue
+        _aligned(dev)
+        rec["queued_ms"][mode].append(f4_queued(
+            lambda: modes[mode](1), 2 if batch else 10, dev))
+    for mode in ("graph", "eager"):
+        _aligned(dev)
+        prof = profile_window(lambda: modes[mode](iters), iters)[0]
+        rec[f"host_launches_{mode}"] = prof["host_launches"]
+        rec[f"idle_share_{mode}"] = prof["idle_share"]
+    return rec
+
+
+def f4_runners(graph, dev, world) -> dict:
+    """F4's runners on this rank (``f4_check`` each): the vertex schedule at
+    P = ranks (``shared``, ``pool``, rwalk through the ring and through the
+    a2a fetch, ``halo_stale``), the sync schedule at dp = ranks and at
+    tp = 2, and the batch schedule at dp = ranks, at the bench
+    configurations (the vertex schedule's f32 gathers)."""
+    vcfg = vertex_cfg()
+    vkw = dict(min_width=MIN_WIDTH, hub_width=HUB_WIDTH, device=dev)
+    rw = dataclasses.replace(vcfg, model="rwalk")
+    makers = {
+        "vertex shared": lambda: VertexShardedForce2Vec(graph, vcfg, **vkw),
+        "vertex pool": lambda: VertexShardedForce2Vec(
+            graph, vcfg, sampling="pool", **vkw),
+        "vertex rwalk ring": lambda: VertexShardedForce2Vec(
+            graph, rw, walk_fetch="ring", **vkw),
+        "vertex rwalk a2a": lambda: VertexShardedForce2Vec(
+            graph, rw, walk_fetch="a2a", **vkw),
+        "vertex halo_stale": lambda: VertexShardedForce2Vec(
+            graph, vcfg, halo_stale=True, **vkw),
+        f"sync dp={world}": lambda: SyncForce2Vec(
+            graph, BENCH_CONFIG, MIN_WIDTH, HUB_WIDTH,
+            spmd=multihost.pod_mesh(1), device=dev),
+        f"sync dp={world // 2} tp=2": lambda: SyncForce2Vec(
+            graph, BENCH_CONFIG, MIN_WIDTH, HUB_WIDTH,
+            spmd=multihost.pod_mesh(2), device=dev),
+        f"batch dp={world}": lambda: Force2Vec(
+            graph, L_BATCH_CONFIG, spmd=multihost.pod_mesh(1), device=dev),
+    }
+    out, rank = {}, dist.get_rank()
+    for what, make in makers.items():
+        t0 = time.perf_counter()
+        fv = make()
+        r = out[what] = f4_check(fv, dev)
+        del fv
+        torch.cuda.empty_cache()
+        # each rank's line as it goes, so a later failure keeps these
+        say(f"F4 {what} rank {rank} ({time.perf_counter() - t0:.1f} s): "
+            f"graph vs eager {r['graph_vs_eager']}, spans "
+            f"{r['spans_vs_eager']}; ms/iteration back to back graph "
+            f"{r['b2b_ms']['graph']} eager {r['b2b_ms']['eager']}; queued "
+            f"graph {r['queued_ms']['graph']} eager "
+            f"{r['queued_ms']['eager']}; host launch calls/iteration graph "
+            f"{r['host_launches_graph']:.1f} eager "
+            f"{r['host_launches_eager']:.1f}; idle share graph "
+            f"{r['idle_share_graph']} eager {r['idle_share_eager']}; "
+            f"capture {r['capture_s']:.3f} s, pool {r['pool_mb']:.1f} MB "
+            f"[{card_name_and_power()}]")
+    return out
+
+
 def _multi_rank(rank, world, x_host, pool, sync_x, negs):
     """F4, one rank: a vertex iteration (P = world) from F1's X and pool,
     and the sync iteration at (dp, tp) = (world, 1) and (world / 2, 2) from
-    F5's X and negatives; times each.  Rank 0 returns the results."""
+    F5's X and negatives; times each; then every multi-rank runner's graph
+    against its eager loop (``f4_runners``).  Every rank returns its
+    runners' record, rank 0 the rest as well."""
     dev = torch.device("cuda", torch.cuda.current_device())
     graph = synth_powerlaw_graph()
     cfg = vertex_cfg()
@@ -2587,6 +2788,7 @@ def _multi_rank(rank, world, x_host, pool, sync_x, negs):
     out["ms_v"] = cuda_ms(lambda: v._iteration(x, pool_t, None, None, v.lr),
                           reps=10)
     out["comm"] = v.comm_stats()
+    del v
     negs_t = torch.as_tensor(negs, device=dev)
     for tp in (1, 2):
         s = SyncForce2Vec(graph, BENCH_CONFIG, MIN_WIDTH, HUB_WIDTH,
@@ -2595,36 +2797,82 @@ def _multi_rank(rank, world, x_host, pool, sync_x, negs):
         reset_counts()
         s.run_iteration(xs, negs_t)
         torch.cuda.synchronize(dev)
-        # the launches and, beside them, the pair scalars' all_reduces
-        out[f"counts_tp{tp}"] = {**read_counts(),
-                                 "tp_all_reduce": s.tp_all_reduces}
+        # the launches and the pair scalars' all_reduces
+        out[f"counts_tp{tp}"] = read_counts()
         out[f"sync_tp{tp}"] = s.unpad_embedding(xs)
         out[f"ms_tp{tp}"] = cuda_ms(lambda: s.run_iteration(xs, negs_t),
                                     reps=10)
+        del s
+    runners = f4_runners(graph, dev, world)
     if rank:
-        return None
-    return {k: (val.cpu().numpy() if isinstance(val, torch.Tensor) else val)
-            for k, val in out.items()}
+        return {"runners": runners, "done_at": time.time()}
+    return {"runners": runners, "done_at": time.time(),
+            **{k: (val.cpu().numpy() if isinstance(val, torch.Tensor)
+                   else val) for k, val in out.items()}}
 
 
-def multi_rank_phase(dev, card, x_host, pool, got_p1, sync_ref):
+def f4_runner_report(world, per_rank, card, errs) -> None:
+    """F4's runners: each rank's graph against its eager loop, bit for bit,
+    with the same launch and collective counts and one capture (each rank
+    printed its times as it went).  Failures go to ``errs``."""
+    for what in per_rank[0]:
+        recs = [r[what] for r in per_rank]
+        r0 = recs[0]
+        say(f"F4 {what} on {world} NCCL ranks: graph vs eager per rank "
+            f"{[r['graph_vs_eager'] for r in recs]}, in spans "
+            f"{[r['spans_vs_eager'] for r in recs]} (X moved up to "
+            f"{max(r['moved'] for r in recs):.3e}); launches and "
+            f"collectives per run eager {r0['counts_eager']}, graph "
+            f"{r0['counts_graph']}; per replay {r0['per_replay']}; "
+            f"captures {[r['captures'] for r in recs]}, capture s "
+            f"{[round(r['capture_s'], 3) for r in recs]}, graph pool MB "
+            f"{[round(r['pool_mb'], 1) for r in recs]} [{card}]")
+        for k, r in enumerate(recs):
+            bad = [name for name in ("graph_vs_eager", "spans_vs_eager")
+                   if r[name] != 0.0]
+            if bad or not r["finite"] or not r["moved"] > 0:
+                errs.append(f"F4 {what} rank {k}: {bad or 'X'} "
+                            f"{[r[b] for b in bad]}, not bit for bit")
+            if not (r["counts_graph"] == r["counts_eager"]
+                    == r["counts_spans"]):
+                errs.append(f"F4 {what} rank {k}: counts eager "
+                            f"{r['counts_eager']}, graph "
+                            f"{r['counts_graph']}, spans "
+                            f"{r['counts_spans']}")
+            if r["captures"] != 1:
+                errs.append(f"F4 {what} rank {k}: {r['captures']} captures")
+
+
+def multi_rank_phase(dev, card, x_host, pool, got_p1, sync_ref, mtx, tmp):
     """F4: where the host has two or more cards, min(count, 4) NCCL ranks:
     one vertex iteration against F1's single-card result, and the sync
     iteration at dp = ranks and at tp = 2 (dp = ranks / 2) against F5's,
-    with their launch counts, exchange bytes and ms/iteration."""
+    with their launch counts, exchange bytes and ms/iteration; then every
+    multi-rank runner's ``train()`` graph against its eager loop
+    (``f4_runner_report``), and the seconds the ranks took to leave their
+    groups after their last result; then ``--devices ranks`` through the
+    command line (``f4_cli``)."""
     n_cards = torch.cuda.device_count()
     if n_cards < 2:
         say(f"F4 (multi-rank NCCL) needs two cards; this host has "
             f"{n_cards}: not run here (the CPU tests hold the ranks on gloo, "
-            f"and F5 the tp ranks on this card)")
+            f"their graphs' code uncaptured against the eager loops, and F5 "
+            f"the tp ranks on this card)")
         return {}
     world = min(n_cards, F_MAX_RANKS) // 2 * 2
     sync_x, negs, want = sync_ref
     t0 = time.perf_counter()
-    res = multihost.spawn(_multi_rank, world, "nccl",
-                          args=(x_host.cpu().numpy(), pool,
-                                sync_x.cpu().numpy(), negs),
-                          timeout=300)[0]
+    results = multihost.spawn(_multi_rank, world, "nccl",
+                              args=(x_host.cpu().numpy(), pool,
+                                    sync_x.cpu().numpy(), negs),
+                              timeout=300, wait=540)
+    # spawn raises if a rank is still in its group EXIT_GRACE s after the
+    # last result: the graphs that captured NCCL collectives went first
+    say(f"F4: the {world} ranks left their NCCL groups "
+        f"{time.time() - max(r['done_at'] for r in results):.2f} s after "
+        f"the last returned its result (spawn allows "
+        f"{multihost.EXIT_GRACE} s)")
+    res = results[0]
     ev = float(np.abs(res["vertex"] - got_p1.cpu().numpy()).max())
     want = want.cpu().numpy()
     e1 = float(np.abs(res["sync_tp1"] - want).max())
@@ -2652,7 +2900,40 @@ def multi_rank_phase(dev, card, x_host, pool, got_p1, sync_ref):
     counts = {}
     for k in ("counts_v", "counts_tp1", "counts_tp2"):
         add_counts(counts, res[k])
+    errs = []
+    f4_runner_report(world, [r["runners"] for r in results], card, errs)
+    for e in errs:
+        say(f"F4 FAILED: {e}")
+    check(not errs, f"F4: {len(errs)} failures: {errs}")
+    for r in res["runners"].values():
+        for mode in ("counts_eager", "counts_graph", "counts_spans"):
+            add_counts(counts, {k: v for k, v in r[mode].items()
+                                if k in fk.launch_counts})
+    f4_cli(world, mtx, tmp, card)
     return counts
+
+
+def f4_cli(world, mtx, tmp, card) -> None:
+    """``python -m force2vec_tpu_torch --devices world`` on NCCL, the
+    batch (default) and vertex schedules: exit code 0, rank 0's output
+    written, and the seconds from its last write (``Results.txt``) to the
+    command's return, which spawn's ranks spend leaving their groups."""
+    for extra, what in (([], "batch"), (["--schedule", "vertex"], "vertex")):
+        out = os.path.join(tmp, f"devices_{what}")
+        t0 = time.perf_counter()
+        rc = cli.main(["-input", mtx, "-output", out, "-option", "5",
+                       "-iter", str(VERTEX_CLI_ITERS), "--devices",
+                       str(world), *extra])
+        seconds = time.perf_counter() - t0
+        check(rc == 0, f"F4 cli --devices {world} {what}: exit code {rc}")
+        embd = [f for f in os.listdir(out) if f.endswith(".embd")]
+        check(len(embd) == 1, f"F4 cli --devices {world} {what}: {embd}")
+        left = time.time() - os.path.getmtime(
+            os.path.join(out, "Results.txt"))
+        say(f"F4 cli --devices {world} --schedule {what} "
+            f"({VERTEX_CLI_ITERS} iterations): exit 0 in {seconds:.1f} s, "
+            f"the ranks gone {left:.2f} s after rank 0's last write "
+            f"[{card}]")
 
 
 # -- F5: the dp × tp sync runner on one card --------------------------------
@@ -2749,7 +3030,7 @@ def _tp_rank(rank, world, x_host, negs):
     reset_counts()
     fv.run_iteration(x, negs)
     torch.cuda.synchronize(dev)
-    counts = {**read_counts(), "tp_all_reduce": fv.tp_all_reduces}
+    counts = read_counts()
     got = fv.unpad_embedding(x)
     first = fv._tp_att.nbr.shape[0]
     checks = tp_checks(
@@ -2960,7 +3241,7 @@ def vertex_path(graph, dev, card, mtx, tmp, main_queued_ms):
     say(f"path F5: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     add_counts(counts, multi_rank_phase(dev, card, x_host, pool, got_p1,
-                                        sync_ref))
+                                        sync_ref, mtx, tmp))
     say(f"path F4: {time.perf_counter() - t0:.1f} s")
     return counts, dp_counts, tp_counts, tp_rec
 
@@ -3880,8 +4161,9 @@ def rounding_bound(fv, x0, negs_t):
     out = fv._edge_table_launch(x0, x0, step, True)
     hub = torch.zeros(x0.shape, device=x0.device)
     if fv._hub is not None:
-        hub[fv._hub.start: fv.layout.n].index_add_(
-            0, fv._hub.owner_local, ulp(out[fv.layout.n_pad:]))
+        h, n_pad = fv._hub, fv.layout.n_pad
+        hub_owner_sum(hub[h.start: fv.layout.n],
+                      ulp(out[n_pad: n_pad + h.n_virtual]), h.owner_off)
     att = fv._place_attraction(out)
     rep = fv._rank_repulsion(x0, x0, negs_t, step, True)
     upd = (att.float() + rep.float()).to(x0.dtype)
@@ -4772,7 +5054,9 @@ def l_runs(fv, x0):
     iterations (``_run_span_eager``), ``train()`` (the graph: a capture on
     its own X, then replays) and ``run_span`` in spans of L_SPANS on a new
     X, with each run's launch counts.  Returns (eager Xs, train's [n, dim]
-    embedding, the spans' X, counts)."""
+    embedding, the spans' X, what the spans are held to, counts): the
+    first eager run, or with ``halo_stale``, where each span primes its
+    first iteration's exchange, the eager loop in the same spans."""
     eager, counts = [], []
     for _ in range(2):
         reset_counts()
@@ -4789,14 +5073,19 @@ def l_runs(fv, x0):
         fv.run_span(xs, 1, k, done)
         done += k
     counts.append(read_counts())
-    return eager, emb, xs, counts
+    want = eager[0]
+    if getattr(fv, "halo_stale", False):
+        want, done = x0.clone(), 0
+        for k in L_SPANS:
+            fv._run_span_eager(want, 1, k, done)
+            done += k
+    return eager, emb, xs, want, counts
 
 
 @contextlib.contextmanager
 def deterministic():
-    """torch's deterministic mode (the sync schedule's hub ``index_add_``
-    as an ordered sum), with uninitialised memory left unfilled, as the
-    default mode leaves it."""
+    """torch's deterministic mode, with uninitialised memory left
+    unfilled, as the default mode leaves it."""
     fill = torch.utils.deterministic.fill_uninitialized_memory
     torch.use_deterministic_algorithms(True)
     torch.utils.deterministic.fill_uninitialized_memory = False
@@ -4808,49 +5097,53 @@ def deterministic():
 
 
 def l_check(fv, what, errs, card) -> dict:
-    """Path L's checks of one configuration (``l_runs``; the sync
-    schedule under ``deterministic``): ``train()`` and the spans against
-    the first eager run, and the two eager runs, bit for bit; the same
-    launch counts in all four runs; X finite.  Failures go to ``errs``.
-    The sync schedule's default-mode eager spread is reported."""
+    """Path L's checks of one configuration (``l_runs``) in torch's
+    default mode, and for the sync schedule again under
+    ``deterministic``: ``train()`` and the spans against the eager loop,
+    and the two eager runs, bit for bit; the same launch counts in all
+    four runs; X finite.  Failures go to ``errs``.  Returns the default
+    mode's record, the deterministic mode's under ``deterministic``."""
     x0 = fv.init_embedding(seed=1)
     sync = isinstance(fv, SyncForce2Vec)
-    default_spread = None
+    recs = {}
+    for mode in ("default", "deterministic") if sync else ("default",):
+        with deterministic() if mode == "deterministic" else (
+                contextlib.nullcontext()):
+            eager, emb, xs, want, counts = l_runs(fv, x0)
+        fv.span_graph.reset()  # captured in this mode
+        spread = max_err(eager[0], eager[1])
+        held = (" (the eager loop in those spans)" if want is not eager[0]
+                else "")
+        e_train = max_err(emb, fv.unpad_embedding(eager[0]))
+        e_spans = max_err(xs, want)
+        g = fv.span_graph
+        recs[mode] = dict(
+            eager_spread=spread, train_vs_eager=e_train,
+            spans_vs_eager=e_spans, moved=max_err(eager[0], x0),
+            launches=counts[0], launches_per_replay=g.counts,
+            capture_s=g.capture_seconds, pool_mb=g.pool_bytes / 2**20,
+            captures=g.captures)
+        say(f"L {what}: {L_ITERS} iterations ({mode} mode), eager vs eager "
+            f"{spread:.3e}, train() (graph) vs eager {e_train:.3e}, "
+            f"run_span in spans {L_SPANS} vs eager{held} {e_spans:.3e} "
+            f"(X moved up to {recs[mode]['moved']:.3e}); "
+            f"launches {nonzero(counts[0])}, per replay {g.counts}; "
+            f"{g.captures} captures, the last {g.capture_seconds:.3f} s, "
+            f"graph pool {recs[mode]['pool_mb']:.1f} MB [{card}]")
+        for name, e in (("eager", spread), ("train()", e_train),
+                        ("spans", e_spans)):
+            if e != 0.0:
+                errs.append(f"{what} ({mode} mode): {name} vs eager "
+                            f"{e:.3e}, not bit for bit")
+        if any(c != counts[0] for c in counts):
+            errs.append(f"{what} ({mode} mode): launch counts differ: "
+                        f"{counts}")
+        if not (bool(torch.isfinite(emb).all())
+                and bool(torch.isfinite(xs).all())):
+            errs.append(f"{what} ({mode} mode): X is not finite")
+    rec = recs["default"]
     if sync:
-        a, b = x0.clone(), x0.clone()
-        fv._run_span_eager(a, 1, L_ITERS)
-        fv._run_span_eager(b, 1, L_ITERS)
-        default_spread = max_err(a, b)
-    with deterministic() if sync else contextlib.nullcontext():
-        eager, emb, xs, counts = l_runs(fv, x0)
-    fv.span_graph.reset()  # captured in deterministic mode
-    spread = max_err(eager[0], eager[1])
-    e_train = max_err(emb, fv.unpad_embedding(eager[0]))
-    e_spans = max_err(xs, eager[0])
-    g = fv.span_graph
-    rec = dict(eager_spread=spread, train_vs_eager=e_train,
-               spans_vs_eager=e_spans, moved=max_err(eager[0], x0),
-               default_mode_eager_spread=default_spread,
-               launches=counts[0], launches_per_replay=g.counts,
-               capture_s=g.capture_seconds, pool_mb=g.pool_bytes / 2**20,
-               captures=g.captures)
-    mode = (f"deterministic mode; default mode eager vs eager "
-            f"{default_spread:.3e}" if sync else "default mode")
-    say(f"L {what}: {L_ITERS} iterations ({mode}), eager vs eager "
-        f"{spread:.3e}, train() (graph) vs eager {e_train:.3e}, run_span "
-        f"in spans {L_SPANS} vs eager {e_spans:.3e} (X moved up to "
-        f"{rec['moved']:.3e}); "
-        f"launches {nonzero(counts[0])}, per replay {g.counts}; {g.captures} "
-        f"captures, the last {g.capture_seconds:.3f} s, graph pool "
-        f"{rec['pool_mb']:.1f} MB [{card}]")
-    for name, e in (("eager", spread), ("train()", e_train),
-                    ("spans", e_spans)):
-        if e != 0.0:
-            errs.append(f"{what}: {name} vs eager {e:.3e}, not bit for bit")
-    if any(c != counts[0] for c in counts):
-        errs.append(f"{what}: launch counts differ: {counts}")
-    if not (bool(torch.isfinite(emb).all()) and bool(torch.isfinite(xs).all())):
-        errs.append(f"{what}: X is not finite")
+        rec["deterministic"] = recs["deterministic"]
     return rec
 
 
@@ -4858,16 +5151,17 @@ def nonzero(counts: dict) -> dict:
     return {k: v for k, v in counts.items() if v}
 
 
-def l_stale_step(fv, gen):
+def l_stale_step(fv, reseed):
     """A planted fault: a graph span's host step that writes the step
-    buffer at its first iteration and never again."""
+    buffer at its first iteration and never again (and re-seeds the draws
+    with ``reseed(seed, it)``)."""
     written = []
 
     def prepare(seed, it):
         if not written:
             fv._step_buf.write(fv._step(it))
             written.append(it)
-        gen.manual_seed(iteration_seed(seed, it))
+        reseed(seed, it)
     return prepare
 
 
@@ -4883,10 +5177,11 @@ def l_stale_draws(fv, gen):
 
 
 def l_faults(graph, small, dev, card, errs) -> dict:
-    """The planted faults, each on a fresh trainer of both schedules (the
-    sync schedule under ``deterministic``): the step buffer not refreshed
-    (fr, decay999) and the negatives not redrawn (tdist).  Each must move X
-    off the eager run, which path L holds the graph to bit for bit."""
+    """The planted faults, each on a fresh trainer of the three
+    schedules: the step buffer not refreshed (fr, decay999; the sync, batch
+    and vertex schedules) and the negatives not redrawn (tdist; sync and
+    batch).  Each must move X off the eager run, which path L holds the
+    graph to bit for bit."""
     out = {}
     for what, make in (
             ("sync fr", lambda: SyncForce2Vec(
@@ -4898,22 +5193,26 @@ def l_faults(graph, small, dev, card, errs) -> dict:
                 small, dataclasses.replace(L_BATCH_CONFIG, model="fr"),
                 device=dev)),
             ("batch tdist", lambda: Force2Vec(small, L_BATCH_CONFIG,
-                                              device=dev))):
+                                              device=dev)),
+            ("vertex fr", lambda: VertexShardedForce2Vec(
+                graph, dataclasses.replace(vertex_cfg(), model="fr"),
+                min_width=MIN_WIDTH, hub_width=HUB_WIDTH, device=dev))):
         fv = make()
-        sync = isinstance(fv, SyncForce2Vec)
-        gen = fv._span_gen if sync else fv._gen
+        vertex = isinstance(fv, VertexShardedForce2Vec)
+        gen = (fv._gen if isinstance(fv, Force2Vec) else fv._span_gen)
         x0 = fv.init_embedding(seed=1)
         e1, x = x0.clone(), x0.clone()
-        fault, name = ((l_stale_step(fv, gen), "step not refreshed")
+        reseed = (fv._seed if vertex else
+                  lambda seed, it: gen.manual_seed(iteration_seed(seed, it)))
+        fault, name = ((l_stale_step(fv, reseed), "step not refreshed")
                        if "fr" in what else
                        (l_stale_draws(fv, gen), "negatives not redrawn"))
         if "fr" in what:
             fv.span_graph._prepare = fault
         else:
-            fv.span_graph._body = fault
-        with deterministic() if sync else contextlib.nullcontext():
-            fv._run_span_eager(e1, 1, L_ITERS)
-            fv.run_span(x, 1, L_ITERS)
+            fv.span_graph._bodies = (fault,)
+        fv._run_span_eager(e1, 1, L_ITERS)
+        fv.run_span(x, 1, L_ITERS)
         e = max_err(x, e1)
         out[f"{what}: {name}"] = e
         say(f"L planted fault, {what}, {name}: graph vs eager {e:.3e} "
@@ -4930,7 +5229,7 @@ def l_timing(fv, what, card) -> dict:
     (the eager batch schedule cannot be queued: its enqueue outlasts the
     sleep), a profiled window of each, the capture's seconds and pool, and
     the eager iteration's peak of allocated memory."""
-    sync = isinstance(fv, SyncForce2Vec)
+    sync = not isinstance(fv, Force2Vec)  # the sync or vertex schedule
     n = L_ITERS if sync else 3
     x = fv.init_embedding(seed=1)
     fv.span_graph.reset()
@@ -4985,9 +5284,9 @@ def l_timing(fv, what, card) -> dict:
 
 
 def graph_path(graph, dev, card):
-    """Path L: every single-card configuration of both trainers, its
-    ``train()`` and ``run_span`` (the CUDA graph) against the eager loop
-    (``l_check``), the planted faults (``l_faults``), and the timed
+    """Path L: every single-card configuration of the three schedules,
+    its ``train()`` and ``run_span`` (the CUDA graph) against the eager
+    loop (``l_check``), the planted faults (``l_faults``), and the timed
     configurations (``l_timing``).  Returns (record, launch counts)."""
     small = synth_powerlaw_graph(**SMALL_GRAPH)
     graphs = {"bench": graph, "small": small,
@@ -4997,6 +5296,15 @@ def graph_path(graph, dev, card):
         fv = SyncForce2Vec(graph, dataclasses.replace(BENCH_CONFIG, **kw),
                            MIN_WIDTH, HUB_WIDTH, device=dev,
                            hot_rows=graph.n // hot_div if hot_div else 0)
+        r = rec["configs"][what] = l_check(fv, what, errs, card)
+        add_counts(total, r["launches"])
+        if what in L_TIMED:
+            rec["timing"][what] = l_timing(fv, what, card)
+        del fv
+    for what, vkw, kw in L_VERTEX:
+        fv = VertexShardedForce2Vec(
+            graph, dataclasses.replace(vertex_cfg(), **kw),
+            min_width=MIN_WIDTH, hub_width=HUB_WIDTH, device=dev, **vkw)
         r = rec["configs"][what] = l_check(fv, what, errs, card)
         add_counts(total, r["launches"])
         if what in L_TIMED:

@@ -171,12 +171,27 @@ def main(argv=None) -> int:
                                      else sys.argv[1:],),
                                timeout=multihost.DEFAULT_TIMEOUT,
                                threads=threads, wait=math.inf)[0]
+    made_group = not dist.is_initialized()
     try:
         if multihost.initialize(args.coordinator, args.num_processes,
                                 args.process_id, backend=backend):
             device = multihost.local_device(device.type)
     except ValueError as e:
         return _fail(str(e))
+    if not (made_group and dist.is_initialized()):
+        return _run(args, device)
+    try:
+        return _run(args, device)
+    finally:
+        multihost.shutdown()  # the group this process joined, left
+
+
+def _run(args, device) -> int:
+    """The command on ``device``, in this process's group if it has one."""
+    import torch
+
+    from force2vec_tpu_torch.dist import multihost
+
     world = multihost.world_size()
 
     from force2vec_tpu_torch.graphs.io import load_graph, write_embeddings

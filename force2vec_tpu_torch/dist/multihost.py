@@ -36,6 +36,9 @@ from force2vec_tpu_torch.dist.spmd import SpmdAxes
 
 # seconds a collective may wait before the process group raises
 DEFAULT_TIMEOUT = 300.0
+# seconds a spawned rank may take to leave its group once every rank has
+# written its result, before the parent kills it and raises
+EXIT_GRACE = 30.0
 
 
 def default_backend(device_type: str) -> str:
@@ -103,6 +106,23 @@ def initialize(coordinator_address: Optional[str] = None,
     return True
 
 
+def shutdown() -> None:
+    """Leave the default process group, if any: first drop every CUDA
+    graph of this process (``train/graph.py::release_all``) and let the
+    card finish, then destroy the group.
+
+    A graph that captured an NCCL collective holds that communicator, and
+    NCCL destroys a communicator only once no graph holds it: destroying
+    the group under a live graph would wait for ever."""
+    from force2vec_tpu_torch.train.graph import release_all
+
+    release_all()
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def pod_mesh(tp: int = 1) -> SpmdAxes:
     """``(dp, tp)`` groups over every rank of the default group: tp groups
     of consecutive ranks (inside a host), dp groups of the ranks with the
@@ -133,7 +153,7 @@ def _rank_entry(fn, rank_, world, backend, store_path, out_dir, timeout,
                 threads, args):
     """One spawned rank: join the group through the FileStore, run
     ``fn(rank, world, *args)``, pickle its result (or the traceback) for
-    the parent, leave the group."""
+    the parent, leave the group (``shutdown``)."""
     if threads:
         torch.set_num_threads(threads)
     code = 0
@@ -147,10 +167,11 @@ def _rank_entry(fn, rank_, world, backend, store_path, out_dir, timeout,
         out = ("ok", fn(rank_, world, *args))
     except Exception:  # the rank's boundary: report it to the parent
         out, code = ("err", traceback.format_exc()), 1
-    with open(os.path.join(out_dir, f"result_{rank_}.pkl"), "wb") as f:
+    path = os.path.join(out_dir, f"result_{rank_}.pkl")
+    with open(path + ".part", "wb") as f:
         pickle.dump(out, f)
-    if dist.is_initialized():
-        dist.destroy_process_group()
+    os.replace(path + ".part", path)  # the parent sees whole results only
+    shutdown()
     sys.stdout.flush()
     sys.stderr.flush()
     os._exit(code)  # no interpreter teardown that could wait on a peer
@@ -168,8 +189,10 @@ def spawn(fn: Callable, world: int, backend: str = "gloo", args=(),
     directory.  Each collective times out after ``timeout`` seconds, and
     the parent waits at most ``wait`` seconds in all (``timeout`` unless
     given; ``math.inf``: no limit): when a rank fails or the time is up, it kills
-    every rank still running and raises.  ``threads`` sets each rank's
-    torch thread count."""
+    every rank still running and raises.  Once every rank has written its
+    result, a rank still leaving its group after ``EXIT_GRACE`` seconds is
+    killed, and ``spawn`` raises: a rank that cannot leave is a fault.
+    ``threads`` sets each rank's torch thread count."""
     import multiprocessing
 
     ctx = multiprocessing.get_context("spawn")
@@ -185,12 +208,20 @@ def spawn(fn: Callable, world: int, backend: str = "gloo", args=(),
             p.start()
         wait = timeout if wait is None else wait
         deadline = time.monotonic() + wait
-        timed_out = False
+        timed_out, stuck, done_at = False, False, None
+        results_at = [os.path.join(tmp, f"result_{r}.pkl")
+                      for r in range(world)]
         while any(p.is_alive() for p in procs):
             if any(p.exitcode not in (None, 0) for p in procs):
                 break
-            if time.monotonic() > deadline:
+            now = time.monotonic()
+            if now > deadline:
                 timed_out = True
+                break
+            if done_at is None and all(map(os.path.exists, results_at)):
+                done_at = now
+            if done_at is not None and now - done_at > EXIT_GRACE:
+                stuck = True
                 break
             time.sleep(0.05)
         hung = [r for r, p in enumerate(procs) if p.is_alive()]
@@ -219,6 +250,10 @@ def spawn(fn: Callable, world: int, backend: str = "gloo", args=(),
                           else "after another rank failed)"))
             raise RuntimeError(f"{len(errors)} of {world} ranks failed{why}:"
                                "\n" + "\n".join(errors))
+        if stuck:
+            raise RuntimeError(f"ranks {hung} wrote their results but did not "
+                               f"leave their process group within "
+                               f"{EXIT_GRACE} s, and were killed")
         return results
     finally:
         for p in procs:

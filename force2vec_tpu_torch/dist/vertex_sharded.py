@@ -19,7 +19,8 @@ iteration:
    choices among ``neg_pool`` rows (``pool``);
 3. waits for the exchange, then the halo-dependent slabs: one work-table
    launch gathering from ``[x_loc | hot | halo]``; the hub's partial rows
-   go into their owners by ``index_add_`` (``ops/segment.py::add_rows``);
+   are summed in row order into their owners
+   (``ops/segment.py::hub_owner_sum``);
 4. applies the update to its own rows: no collective.
 
 The pool rows are a masked gather of the rows each rank owns and one
@@ -41,7 +42,22 @@ its exchange and consumes the one issued at i−1, so nothing in the
 iteration waits on the collective in flight (the reference's own
 cross-batch staleness, sample/algorithms.cpp:629-639).  Each ``run_span``
 primes it with its first X's exchange, so a span's first iteration is
-exact.
+exact, as each call of the JAX package's loop primes its carry; a run in
+spans equals the eager loop (``_run_span_eager``) in the same spans.
+
+``run_span`` and ``train()`` run one iteration a CUDA graph replay on a
+card (``train/graph.py::IterationGraph``, the counterpart of the JAX
+package's ``shard_map`` jitted once per trip count), at P = 1 and at any
+P on an NCCL group, whose collectives the graph captures with the
+kernels; the step comes from a device buffer (``StepBuffer``) and the
+draws from the runner's two generators, re-seeded before each replay.  A
+graph cannot swap host references, so ``halo_stale`` holds two static
+``[x_loc | hot | halo]`` tables and one graph per parity: iteration i
+issues its exchange into table i mod 2 and reads table (i − 1) mod 2, and
+the exchange it issues ends within its replay (the overlap across
+iterations goes; what each iteration reads stays).  On the CPU they run
+the eager loop; on a card over a gloo group they raise
+(``graph.check_capturable``).
 
 X's rows, the ``[x_loc | hot | halo]`` table and the exchange's buffers
 are ``row_width`` = ``padded_dim(dim)`` wide, the padding columns 0, as
@@ -58,6 +74,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import time
 from typing import Optional
 
@@ -69,7 +86,9 @@ from force2vec_tpu_torch.graphs.csr import Graph
 from force2vec_tpu_torch.graphs.partition import VertexShardLayout
 from force2vec_tpu_torch.models.forces import ForceModel, get_model
 from force2vec_tpu_torch.ops import force_kernels as fk
-from force2vec_tpu_torch.ops.segment import add_rows
+from force2vec_tpu_torch.ops.segment import hub_owner_sum, owner_offsets
+from force2vec_tpu_torch.train.graph import (IterationGraph, StepBuffer,
+                                             check_capturable)
 from force2vec_tpu_torch.train.trainer import (TrainConfig, iteration_seed,
                                                round_to, step_at)
 
@@ -127,7 +146,11 @@ class ShardTables:
     hot_send: torch.Tensor  # [Hh] int32 local rows of the hot tier
     rows: torch.Tensor  # [n_loc] int32 0..n_loc-1
     hub_start: int = 0
-    hub_owner: Optional[torch.Tensor] = None  # [hub rows] int64, - hub_start
+    # where each owner row's run of the hub's real virtual rows starts, from
+    # hub_start on, and the end of the last (ops/segment.py::owner_offsets);
+    # how many there are
+    hub_off: Optional[torch.Tensor] = None  # [n_loc - hub_start + 1] int64
+    hub_virtual: int = 0
 
     @staticmethod
     def build(lay: VertexShardLayout, p: int, device,
@@ -159,7 +182,11 @@ class ShardTables:
                 (t(b.nbr[p]), t(b.deg[p]), t(rows), b.start_local))
         hub_rows = 0
         zero_from = n_loc
+        hub_off, hub_virtual = None, 0
         if hub is not None:
+            off = owner_offsets(hub.owners[p], hub.deg[p],
+                                n_loc - hub.start_local)
+            hub_off, hub_virtual = t(off), int(off[-1])
             hub_rows = hub.count
             zero_from = hub.start_local
             dep.append((t(hub.nbr[p]), t(hub.deg[p]),
@@ -190,8 +217,7 @@ class ShardTables:
             hot_send=t(lay.hot_send[p]),
             rows=torch.arange(n_loc, dtype=torch.int32, device=dev),
             hub_start=hub.start_local if hub is not None else 0,
-            hub_owner=(t(hub.owners[p], torch.int64) if hub is not None
-                       else None))
+            hub_off=hub_off, hub_virtual=hub_virtual)
 
 
 def _in_range(ids: torch.Tensor, hi: int) -> bool:
@@ -240,8 +266,9 @@ def shard_dep_part(model: ForceModel, t: ShardTables, x, xtab, upd, rep,
                    step, plain: bool = False) -> torch.Tensor:
     """What a shard computes once its halo is in ``xtab`` (``[x_loc | hot |
     halo]``): the dep slabs and the hub's virtual rows, the hub partials
-    into their owners, plus the repulsion.  Returns the ``[n_loc, D]``
-    update (a view of ``upd``)."""
+    summed into their owners (``hub_owner_sum``, which stores the sums),
+    plus the repulsion.  Returns the ``[n_loc, D]`` update (a view of
+    ``upd``)."""
     if t.dep is not None:
         if plain:
             fk.ell_edge_force_table_plain(model, x, xtab, t.dep, t.inv_deg,
@@ -250,18 +277,23 @@ def shard_dep_part(model: ForceModel, t: ShardTables, x, xtab, upd, rep,
             fk.ell_edge_force_table(model, x, xtab, t.dep, t.inv_deg, step,
                                     out=upd)
     loc = upd[: t.n_loc]
-    if t.hub_owner is not None:
-        add_rows(loc[t.hub_start:], t.hub_owner, upd[t.n_loc:])
+    if t.hub_off is not None:
+        hub_owner_sum(loc[t.hub_start:],
+                      upd[t.n_loc: t.n_loc + t.hub_virtual], t.hub_off)
     return loc.add_(rep)
 
 
 def apply_update(model: ForceModel, x, upd, step) -> torch.Tensor:
     """``x += upd``, or the energy-normalised update (per row,
-    sample/algorithms.cpp:224-239), in place."""
+    sample/algorithms.cpp:224-239), in place.  ``step``: a float or the
+    0-d f32 step buffer."""
     if model.update == "energy":
         fnorm = torch.sum(upd * upd, dim=-1, keepdim=True)
         safe = torch.where(fnorm > 0, fnorm, 1.0)
-        upd.mul_(torch.where(fnorm > 0, step / torch.sqrt(safe), 0.0))
+        # step / √fnorm, rounded as torch rounds a float step over a
+        # tensor, which a tensor step (the graph's) rounds the same way
+        upd.mul_(torch.where(fnorm > 0,
+                             torch.sqrt(safe).reciprocal() * step, 0.0))
     return x.add_(upd)
 
 
@@ -318,7 +350,6 @@ class VertexShardedForce2Vec:
         # walk models have no standing halo: the flag is ignored there
         self.halo_stale = bool(halo_stale) and self.model.attraction != "walk"
         self.lr = config.resolve_lr(self.model)
-        self.meter = None  # a utils.profiling.Meter times the phases
 
         self.layout = lay = VertexShardLayout.build(
             graph, self.P, min_width=min_width, hub_width=hub_width,
@@ -336,6 +367,18 @@ class VertexShardedForce2Vec:
         self._span_gen = torch.Generator(device=dev)
         self._choice_gen = torch.Generator(device=dev)
         self._dropped = torch.zeros((), dtype=torch.int64, device=dev)
+        # run_span on a card: the iteration as a CUDA graph (train/graph.py)
+        # reading the step from this buffer; halo_stale: one graph per
+        # parity over the two static tables of _stale_tables
+        self._step_buf = StepBuffer(dev)
+        self._stale_tabs = None
+        self._meter = None
+        self.span_graph = IterationGraph(
+            self._prepare_iteration,
+            ((functools.partial(self._static_iteration, parity=0),
+              functools.partial(self._static_iteration, parity=1))
+             if self.halo_stale else self._static_iteration),
+            (self._span_gen, self._choice_gen), start=self._start_span)
         self.walk_fetch, self.walk_cap = "ring", 0
         if self.model.attraction == "walk":
             pool, base, _ = build_walk_tables(lay, p)
@@ -359,8 +402,22 @@ class VertexShardedForce2Vec:
 
     # -- observability ---------------------------------------------------------
 
+    @property
+    def meter(self):
+        """A ``utils.profiling.Meter`` that times the iteration's phases
+        (pool, exchange, free, dep, apply), or None.  Setting it drops the
+        captured graph: the next span captures its phases' events, and
+        every replay adds their times."""
+        return self._meter
+
+    @meter.setter
+    def meter(self, meter) -> None:
+        self._meter = meter
+        self.span_graph.meter = meter
+        self.span_graph.reset()
+
     def _phase(self, name: str):
-        return (self.meter.phase(name) if self.meter is not None
+        return (self._meter.phase(name) if self._meter is not None
                 else contextlib.nullcontext())
 
     def walk_overflow_dropped(self) -> int:
@@ -445,13 +502,14 @@ class VertexShardedForce2Vec:
     def init_embedding(self, seed: int = 1) -> torch.Tensor:
         """This rank's ``[n_loc, row_width]`` rows of an ``[n, dim]``
         uniform init in original id order ([0, 1) or [-1, 1) by the model),
-        drawn in chunks of rows from one generator seeded with ``seed`` on
-        every rank: the same X for any P and row width.  Padding rows are 0
+        drawn in f32 in chunks of rows from one generator seeded with
+        ``seed`` on every rank, then rounded once to X's dtype: the same X
+        for any P and row width.  Padding rows are 0
         (-1 with the [-1, 1) init); padding columns 0."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         n, dim = self.graph.n, self.config.dim
         x = torch.zeros((self.layout.n_loc, self.row_width),
-                        dtype=self._dtype, device=self.device)
+                        device=self.device)
         ids, lrows = self._own_ids, self._own_lrows
         for c0 in range(0, n, _INIT_CHUNK):
             c1 = min(n, c0 + _INIT_CHUNK)
@@ -461,7 +519,7 @@ class VertexShardedForce2Vec:
             x[lrows[sel], :dim] = chunk[ids[sel] - c0]
         if self.model.init != "uniform01":
             x[:, :dim].mul_(2.0).sub_(1.0)
-        return x
+        return x.to(self._dtype)
 
     def pad_embedding(self, x) -> torch.Tensor:
         """Host or device ``[n, dim]`` in original id order → this rank's
@@ -669,26 +727,35 @@ class VertexShardedForce2Vec:
             dist.all_reduce(rows, group=self.group)
         return rows
 
-    def _iteration(self, x, pool_g, choice, walks, step,
-                   state=None) -> torch.Tensor:
-        """One iteration on this rank's rows, in place.  ``state`` (stale
-        mode): ``[table, pending]`` of the exchange issued last iteration,
-        replaced by this iteration's."""
+    def _iteration(self, x, pool_g, choice, walks, step, state=None,
+                   pair=None) -> torch.Tensor:
+        """One iteration on this rank's rows, in place; ``step`` a float or
+        the 0-d f32 step buffer.  ``state`` (the eager loop's stale mode):
+        ``[table, pending]`` of the exchange issued last iteration,
+        replaced by this iteration's.  ``pair`` (the graph's stale mode):
+        two static tables; this iteration's exchange goes into the first,
+        and ends with the iteration, and the second, which holds the last
+        iteration's, is read."""
         model, t = self.model, self.tables
         with self._phase("pool"):
             rows = self.pool_rows(x, pool_g)
+        issued = []
         if model.attraction == "walk":
             with self._phase("free"):
                 upd = _repulsion(model, t, x, rows, step, choice, False)
                 upd.add_(self._walk_attraction(x, walks, step))
         else:
             with self._phase("exchange"):
-                tab = self._new_table(x)
-                pending = self._issue_exchange(x, tab)
+                if pair is not None:
+                    issued = self._issue_exchange(x, pair[0])
+                    tab, pending = pair[1], []
+                else:
+                    tab = self._new_table(x)
+                    pending = self._issue_exchange(x, tab)
                 if state is not None:  # consume last iteration's exchange
-                    issued = [tab, pending]
+                    fresh = [tab, pending]
                     tab, pending = state
-                    state[:] = issued
+                    state[:] = fresh
             with self._phase("free"):
                 upd, rep = shard_free_part(model, t, x, rows, step, choice)
                 tab[: t.n_loc].copy_(x)
@@ -696,28 +763,79 @@ class VertexShardedForce2Vec:
                 self._wait(pending)
                 upd = shard_dep_part(model, t, x, tab, upd, rep, step)
         with self._phase("apply"):
-            return apply_update(model, x, upd, step)
+            apply_update(model, x, upd, step)
+            self._wait(issued)
+        return x
 
-    def _draw(self, seed: int, it: int):
-        """Iteration ``it``'s pool ids (the same on every rank), then its
-        walks (from the same generator), and in ``pool`` mode this rank's
-        choices (its own generator)."""
-        gen, cfg = self._span_gen, self.config
+    def _seed(self, seed: int, it: int) -> None:
+        """Iteration ``it``'s generators: the pool's and the walks' (seeded
+        alike on every rank) and, in ``pool`` mode, this rank's
+        choices'."""
         s = iteration_seed(seed, it)
-        gen.manual_seed(s)
-        S = cfg.ns if self.sampling == "shared" else self.neg_pool
-        pool_g = torch.randint(0, max(self.layout.n - 1, 1), (S,),
-                               generator=gen, dtype=torch.int32,
-                               device=self.device)
-        walks = (self.draw_walks(gen) if self.model.attraction == "walk"
-                 else None)
-        choice = None
+        self._span_gen.manual_seed(s)
         if self.sampling == "pool":
             self._choice_gen.manual_seed(iteration_seed(s, self.rank + 1))
+
+    def _draws(self):
+        """An iteration's pool ids (the same on every rank), then its walks
+        (from the same generator), and in ``pool`` mode this rank's
+        choices (its own generator), from the seeded generators."""
+        cfg = self.config
+        S = cfg.ns if self.sampling == "shared" else self.neg_pool
+        pool_g = torch.randint(0, max(self.layout.n - 1, 1), (S,),
+                               generator=self._span_gen, dtype=torch.int32,
+                               device=self.device)
+        walks = (self.draw_walks(self._span_gen)
+                 if self.model.attraction == "walk" else None)
+        choice = None
+        if self.sampling == "pool":
             choice = torch.randint(0, S, (self.layout.n_loc, cfg.ns),
                                    generator=self._choice_gen,
                                    dtype=torch.int32, device=self.device)
         return pool_g, choice, walks
+
+    def _draw(self, seed: int, it: int):
+        """Iteration ``it``'s draws (``_draws``)."""
+        self._seed(seed, it)
+        return self._draws()
+
+    def _step(self, it: int) -> float:
+        return step_at(self.model, self.lr, it, self._dtype)
+
+    def _stale_tables(self, x) -> list:
+        """``halo_stale``'s two static ``[x_loc | hot | halo]`` tables, made
+        once (a graph reads them)."""
+        if self._stale_tabs is None:
+            self._stale_tabs = [self._new_table(x), self._new_table(x)]
+            self.span_graph.reset()
+        return self._stale_tabs
+
+    def _start_span(self, x, it: int) -> None:
+        """The host's work at the start of a graph span from iteration
+        ``it``: with ``halo_stale``, X's exchange into the table the span's
+        first iteration reads, (it − 1) mod 2, waited for."""
+        if self.halo_stale:
+            self._wait(self._issue_exchange(
+                x, self._stale_tables(x)[(it - 1) % 2]))
+
+    def _prepare_iteration(self, seed: int, it: int) -> None:
+        """The host's part of iteration ``it`` of a graph span: its step
+        into the step buffer, the generators re-seeded for its draws."""
+        self._step_buf.write(self._step(it))
+        self._seed(seed, it)
+
+    def _static_iteration(self, x, parity: int = 0) -> None:
+        """The iteration a graph span captures: the draws from the
+        re-seeded generators, the step from the step buffer; with
+        ``halo_stale`` (one body per ``parity``) the exchange into table
+        ``parity``, table ``1 - parity`` read."""
+        pool_g, choice, walks = self._draws()
+        pair = None
+        if self.halo_stale:
+            tabs = self._stale_tabs
+            pair = (tabs[parity], tabs[1 - parity])
+        self._iteration(x, pool_g, choice, walks, self._step_buf.tensor,
+                        pair=pair)
 
     # -- public API ------------------------------------------------------------
 
@@ -762,16 +880,32 @@ class VertexShardedForce2Vec:
         seeded with ``seed``, on this rank's rows in place; returns them.
         Draws are keyed by ``(seed, absolute iteration)``, so spans compose
         into the straight run (in ``halo_stale`` mode each span primes the
-        pipeline with its first X's exchange)."""
+        pipeline with its first X's exchange).
+
+        On a card the iteration is a CUDA graph (``span_graph``,
+        ``train/graph.py``), captured once per X and replayed once per
+        iteration, with its collectives (every rank captures the same
+        iteration); on the CPU, the eager loop (``_run_span_eager``).
+        Raises ``RuntimeError`` on a card over a group that is not NCCL's
+        (``graph.check_capturable``)."""
+        if self.device.type != "cuda":
+            return self._run_span_eager(x, seed, num_iters, iter_offset)
+        if self.P > 1:
+            check_capturable(self.group or dist.group.WORLD)
+        return self.span_graph.run(x, seed, num_iters, iter_offset)
+
+    def _run_span_eager(self, x: torch.Tensor, seed: int, num_iters: int,
+                        iter_offset: int = 0) -> torch.Tensor:
+        """``run_span`` as a Python loop of eager launches, each step a
+        float, ``halo_stale``'s pending exchange carried on the host: the
+        reference the graph is held against."""
         state = None
-        if self.halo_stale:
+        if self.halo_stale and num_iters > 0:
             tab = self._new_table(x)
             state = [tab, self._issue_exchange(x, tab)]
         for it in range(iter_offset, iter_offset + num_iters):
             pool_g, choice, walks = self._draw(seed, it)
-            self._iteration(x, pool_g, choice, walks,
-                            step_at(self.model, self.lr, it, self._dtype),
-                            state)
+            self._iteration(x, pool_g, choice, walks, self._step(it), state)
         if state is not None:
             self._wait(state[1])  # the last exchange has no consumer
         return x

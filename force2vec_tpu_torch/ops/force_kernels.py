@@ -31,6 +31,10 @@ Each kernel has
 * a launch count in ``launch_counts``, raised by one per kernel launch and
   by nothing else.
 
+``launch_counts["tp_all_reduce"]`` counts the sync trainer's NCCL
+``all_reduce`` of the tp pair's scalars (``train/sync.py``), so that a
+replayed CUDA graph (``train/graph.py``) counts it with the kernels.
+
 The step is a float or a 0-d f32 tensor on the operands' device (a
 trainer's step buffer); the kernels read it from device memory, so that
 a launch captured in a CUDA graph reads each replay's step.
@@ -70,7 +74,7 @@ from force2vec_tpu_torch.ops import _build
 
 launch_counts = {"ell_edge_force": 0, "grouped_rep_force": 0,
                  "ell_sample_force": 0, "tp_pair_partial": 0,
-                 "tp_pair_force": 0}
+                 "tp_pair_force": 0, "tp_all_reduce": 0}
 
 # model ids of csrc/common.cuh's EdgeModel and SampleModel
 _EDGE_MODEL_IDS = {

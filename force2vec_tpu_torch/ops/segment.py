@@ -17,13 +17,21 @@ non-negative and sum to the edge count: they would read the lengths back
 to the host once per batch.  The caller builds them from the CSR row
 pointers, which guarantees both.
 
-``add_rows`` adds rows into rows by an index (the sync and vertex
-schedules' hub partial sums into their owner rows): ``index_add_``, with
-a bf16 or f16 destination's sums taken in f32 and rounded once.
+The sync and vertex schedules' hub rows are summed the same way.  A hub
+vertex's CSR row is cut into virtual rows of a fixed width, whose partial
+sums the edge kernel writes past the update's rows; an owner's virtual
+rows are consecutive (``graphs/csr.py``, ``graphs/partition.py``), so its
+partials are one run, and ``hub_owner_sum`` stores each run's sum, in
+row order, into the owner's row (the JAX package's
+``jax.ops.segment_sum``).  The runs' offsets are static, built once with
+the layout (``owner_offsets``), so the sum is one ``segment_reduce``
+launch and a copy: given lengths, the operator would make the offsets
+anew at every call (a fill, a scan and a concatenation).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 SEGMENT_MODES = ("matmul", "scatter")
@@ -44,13 +52,36 @@ def segment_sum_into_batch(forces: torch.Tensor, lengths: torch.Tensor,
                                 unsafe=True)
 
 
-def add_rows(dst: torch.Tensor, index: torch.Tensor,
-             src: torch.Tensor) -> torch.Tensor:
-    """``dst.index_add_(0, index, src)``, in place; returns ``dst``.  A
-    bf16 or f16 ``dst`` (X held in bf16 or f16) gets each row's sum taken
-    in f32 and rounded once: 2-byte atomics would round at every add, in
-    an order that changes from run to run, and a hub owner sums tens of
-    partial rows."""
-    if dst.dtype == torch.float32:
-        return dst.index_add_(0, index, src)
-    return dst.copy_(dst.float().index_add_(0, index, src.float()))
+def owner_offsets(owners: np.ndarray, deg: np.ndarray,
+                  n_owners: int) -> np.ndarray:
+    """``[n_owners + 1]`` int64: where each owner offset's run of a hub's
+    virtual rows starts (``owners``: offsets from the first owner row),
+    then the end of the last, which is the count of real virtual rows
+    (``deg > 0``).  They come first; the alignment padding rows past them
+    have no edge and are left out of the sum.  Raises ``ValueError`` unless each
+    owner's real virtual rows form one run, in owner order."""
+    real = int(np.count_nonzero(deg > 0))
+    own = np.asarray(owners[:real], dtype=np.int64)
+    if (np.any(deg[real:] > 0) or np.any(np.diff(own) < 0)
+            or (real and (own[0] < 0 or own[-1] >= n_owners))):
+        raise ValueError("a hub owner's virtual rows must be one run, in "
+                         "owner order, before the padding rows")
+    return np.concatenate([[0], np.cumsum(np.bincount(
+        own, minlength=n_owners))]).astype(np.int64)
+
+
+def hub_owner_sum(dst: torch.Tensor, src: torch.Tensor,
+                  offsets: torch.Tensor) -> torch.Tensor:
+    """``dst[r] = Σ`` of ``src``'s rows ``[offsets[r], offsets[r + 1])``,
+    added in row order, 0 where the run is empty; stores into ``dst`` in
+    place (each owner row's earlier value is replaced, so the caller's
+    owner rows need not be 0) and returns it.
+
+    dst ``[R, D]``; src ``[offsets[R], D]``; offsets ``[R + 1]`` int64 on
+    the device, from 0, non-decreasing (``owner_offsets``: not checked,
+    which would read them back).  The sum is taken in f32 and rounded once
+    into ``dst``'s dtype (a bf16 or f16 X)."""
+    if src.dtype != torch.float32:
+        src = src.float()
+    return dst.copy_(torch.segment_reduce(src, "sum", offsets=offsets,
+                                          axis=0, unsafe=True))

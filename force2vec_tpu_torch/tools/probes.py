@@ -259,7 +259,7 @@ def sweep_setup(graph, dev, min_width=MIN_WIDTH, hub_width=HUB_WIDTH):
     of X for a bucket, the owners' rows for the hub)."""
     fv = SyncForce2Vec(graph, BENCH_CONFIG, min_width, hub_width, device=dev)
     x = fv.init_embedding(seed=1)
-    xis = [x[b.start: b.start + b.nbr.shape[0]] if b.owner_local is None
+    xis = [x[b.start: b.start + b.nbr.shape[0]] if b.owner_off is None
            else x[b.xi_row.long()] for b in fv.device_buckets]
     return fv, x, x.to(torch.bfloat16), xis
 

@@ -1,6 +1,8 @@
-"""Where one sync iteration's time goes, at the bench configuration.
+"""Where one sync or vertex iteration's time goes, at the bench
+configuration.
 
     python3 -m force2vec_tpu_torch.tools.profile_iter [--iters 20]
+        [--schedule sync|vertex]
         [--model tdist|sigmoid|rwalk|fr|linlog|forceatlas] [--per-vertex]
         [--n 131072] [--dim 128] [--hot-rows K]
         [--dtype float32|bfloat16|float16]
@@ -19,7 +21,13 @@ the bench's bf16 replica for an f32 X and X itself for the others, no
 cast; ``SyncForce2Vec._replica`` says what the other pairs gather) and
 measures, on the kernel
 path, an iteration as ``run_iteration`` runs it and as ``train()`` runs
-it (for walk models, the walk engine's draw included):
+it (for walk models, the walk engine's draw included).  With
+``--schedule vertex`` it builds ``VertexShardedForce2Vec`` at P = 1 (one
+card, no process group) on the same graph and configuration instead
+(``--per-vertex``: its ``pool`` sampling, as the CLI's ``-bs 1``; X's own
+dtype is gathered, and ``--hot-rows`` is refused); its eager iteration is
+``_iteration`` on fixed pool ids (and choices, and walks drawn each time),
+as F1 of ``chip_smoke.py`` times it, and ``span_*`` its ``run_span``:
 
 * three times each, since the host's speed varies from one moment to the
   next, for ``run_iteration`` (eager launches, injected negatives) and for
@@ -63,6 +71,7 @@ import numpy as np
 import torch
 from torch.autograd import DeviceType
 
+from force2vec_tpu_torch.dist.vertex_sharded import VertexShardedForce2Vec
 from force2vec_tpu_torch.graphs import synth_powerlaw_graph
 from force2vec_tpu_torch.ops import force_kernels as fk
 from force2vec_tpu_torch.tools import (BENCH_CONFIG, HUB_WIDTH, MIN_WIDTH,
@@ -161,6 +170,7 @@ def split_launches(fv, x, xg, card, reps: int) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--schedule", default="sync", choices=("sync", "vertex"))
     ap.add_argument("--model", default=BENCH_CONFIG.model)
     ap.add_argument("--per-vertex", action="store_true")
     ap.add_argument("--n", type=int, default=131072,
@@ -187,9 +197,16 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     card = card_name_and_power()
     print(card, flush=True)
+    vertex = args.schedule == "vertex"
+    if vertex and (args.hot_rows or args.gather_dtype):
+        print("profile_iter: the vertex schedule gathers X itself: no "
+              "--hot-rows or --gather-dtype", file=sys.stderr)
+        return 2
     gather = args.gather_dtype or (BENCH_CONFIG.gather_dtype
-                                   if args.dtype == "float32" else None)
-    print(f"model={args.model} per_vertex={args.per_vertex} n={args.n} "
+                                   if args.dtype == "float32" and not vertex
+                                   else None)
+    print(f"schedule={args.schedule} model={args.model} "
+          f"per_vertex={args.per_vertex} n={args.n} "
           f"dim={args.dim} hot_rows={args.hot_rows} dtype={args.dtype} "
           f"gather_dtype={gather}", flush=True)
 
@@ -197,24 +214,44 @@ def main(argv=None) -> int:
                               per_vertex_samples=args.per_vertex,
                               dtype=args.dtype, gather_dtype=gather)
     t0 = time.perf_counter()
-    fv = SyncForce2Vec(synth_powerlaw_graph(n=args.n), cfg, MIN_WIDTH,
-                       HUB_WIDTH, device=dev,
-                       hot_rows=args.hot_rows)
-    build_s = time.perf_counter() - t0
-    stats = fv.split_stats()
-    print(f"split_stats={json.dumps(stats)} (graph and trainer built in "
-          f"{build_s:.1f} s)", flush=True)
-    n_pad = fv.layout.n_pad
-    rows = n_pad if cfg.per_vertex_samples else -(-n_pad // cfg.batch_size)
-    negs = torch.as_tensor(np.random.default_rng(7).integers(
-        0, fv.graph.n - 1, size=(rows, cfg.ns)).astype(np.int32), device=dev)
-    x = fv.init_embedding(seed=1)
+    graph = synth_powerlaw_graph(n=args.n)
+    rng = np.random.default_rng(7)
     gen = torch.Generator(dev).manual_seed(7)
+    if vertex:
+        fv = VertexShardedForce2Vec(
+            graph, cfg, min_width=MIN_WIDTH, hub_width=HUB_WIDTH,
+            sampling="pool" if args.per_vertex else "shared", device=dev)
+        stats = {"vertex_layout": fv.layout.stats}
+    else:
+        fv = SyncForce2Vec(graph, cfg, MIN_WIDTH, HUB_WIDTH, device=dev,
+                           hot_rows=args.hot_rows)
+        stats = fv.split_stats()
+    build_s = time.perf_counter() - t0
+    print(f"{'layout' if vertex else 'split_stats'}={json.dumps(stats)} "
+          f"(graph and trainer built in {build_s:.1f} s)", flush=True)
+    x = fv.init_embedding(seed=1)
     is_walk = fv.model.attraction == "walk"
+    if vertex:
+        S = cfg.ns if fv.sampling == "shared" else fv.neg_pool
+        pool = torch.as_tensor(rng.integers(0, graph.n - 1, S).astype(
+            np.int32), device=dev)
+        choice = (None if fv.sampling == "shared" else torch.as_tensor(
+            rng.integers(0, S, (fv.layout.n_loc, cfg.ns)).astype(np.int32),
+            device=dev))
 
-    def iteration():
-        fv.run_iteration(x, negs,
-                         walks=fv.draw_walks(gen) if is_walk else None)
+        def iteration():
+            fv._iteration(x, pool, choice,
+                          fv.draw_walks(gen) if is_walk else None, fv.lr)
+    else:
+        n_pad = fv.layout.n_pad
+        rows = n_pad if cfg.per_vertex_samples else -(-n_pad //
+                                                      cfg.batch_size)
+        negs = torch.as_tensor(rng.integers(
+            0, graph.n - 1, size=(rows, cfg.ns)).astype(np.int32), device=dev)
+
+        def iteration():
+            fv.run_iteration(x, negs,
+                             walks=fv.draw_walks(gen) if is_walk else None)
 
     xs, done = fv.init_embedding(seed=1), [0]
 
@@ -231,9 +268,25 @@ def main(argv=None) -> int:
     print(f"run_span graph: captured in {g.capture_seconds:.3f} s, pool "
           f"{res_graph['pool_mb']:.1f} MB, launches per replay {g.counts} "
           f"[{card}]", flush=True)
-    # the host cost of the path's one edge launch
-    xg = fv._replica(x)
-    if is_walk:  # over the walk table
+    # the host cost of the path's edge launch
+    xg = x if vertex else fv._replica(x)
+    if vertex:  # the free slabs' table, or the walks' launch
+        steps = graph.nnz
+        t, out = fv.tables, None
+        if is_walk:
+            walks = fv.draw_walks(gen)
+            steps = int((walks >= 0).sum())
+
+            def edge_call():
+                fv._walk_attraction(x, walks, fv.lr)
+        else:
+            out = torch.empty((t.out_rows, x.shape[1]), dtype=x.dtype,
+                              device=dev)
+
+            def edge_call():
+                fk.ell_edge_force_table(fv.model, x, x, t.free, t.inv_deg,
+                                        fv.lr, out=out)
+    elif is_walk:  # over the walk table
         walks = fv.draw_walks(gen)
         steps = walks.numel()
 
@@ -246,7 +299,8 @@ def main(argv=None) -> int:
         def edge_call():
             fk.ell_edge_force_table(fv.model, x, xg, fv.edge_table,
                                     fv.inv_deg, fv.lr)
-    res = {"card": card, "model": cfg.model, "n": args.n, "dim": cfg.dim,
+    res = {"card": card, "schedule": args.schedule, "model": cfg.model,
+           "n": args.n, "dim": cfg.dim,
            "dtype": cfg.dtype, "gather_dtype": cfg.gather_dtype,
            "per_vertex_samples": cfg.per_vertex_samples,
            "split": {"stats": stats}, "span_graph": res_graph,
@@ -260,7 +314,7 @@ def main(argv=None) -> int:
         res["repeats"].append(r)
         print(" ".join(f"{k}={v:.4f}" for k, v in r.items()) + f" [{card}]",
               flush=True)
-    if fv.hot_table is not None:
+    if not vertex and fv.hot_table is not None:
         res["split"].update(split_launches(fv, x, xg, card, args.iters))
     res["edge_wrapper_host_us"] = 1e3 * host_ms(edge_call, 200)
     print(f"edge_wrapper_host_us={res['edge_wrapper_host_us']:.2f} [{card}]",

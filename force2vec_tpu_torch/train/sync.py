@@ -13,10 +13,10 @@ iteration over the degree-sorted ELL layout (graphs/csr.py::SyncLayout):
    * CSR models: one launch over the layout's work table
      (``edge_table``, every bucket, widest first), written straight into
      the update's rows; the hub bucket's virtual rows write partial sums to
-     rows past ``n_pad``, which ``index_add_`` adds into their owner rows,
-     and a width-0 entry zeroes the rows no bucket writes (the hub owners
-     and padding; with a bf16 or f16 X the owners' sums are taken in f32,
-     ``ops/segment.py::add_rows``);
+     rows past ``n_pad``, which ``ops/segment.py::hub_owner_sum`` sums in
+     row order into their owner rows (in f32, rounded once to X's dtype:
+     the same bits on every run), and a width-0 entry zeroes the rows no
+     bucket writes (the hub owners and padding);
    * with the hot/cold gather split (``hot_rows > 0``; the layout's hot
      suffix, the top ``hot_rows`` rows of the degree order, is the
      relabeled rows ``[n - hot_rows, n)``): that launch over the cold
@@ -89,16 +89,19 @@ ranks:
   to end (the split's cold and hot tables both; group-shared negatives
   as each row's own row of ns ids): one
   ``tp_pair_partial`` launch over both, one ``all_reduce`` of the scalars
-  over tp (counted in ``tp_all_reduces``), then a ``tp_pair_force`` launch
-  for each force on its slice of them (the hot table's adding into the
-  cold's rows).  The JAX package runs that
+  over tp (counted in ``force_kernels.launch_counts["tp_all_reduce"]``),
+  then a ``tp_pair_force`` launch for each force on its slice of them
+  (the hot table's adding into the cold's rows).  The JAX package runs that
   step in jnp ops (Pallas off at tp > 1).
 
 ``run_span`` and ``train()`` run one iteration a CUDA graph replay on a
-card at one rank (``train/graph.py``, the counterpart of the JAX package's
-one-program run): the step comes from a device buffer, which the kernels
-read through a pointer, and the draws from the trainer's generator inside
-the graph.  On the CPU and under dp or tp they run the eager loop.
+card (``train/graph.py``, the counterpart of the JAX package's one-program
+run), at one rank and on every dp × tp rank alike, the NCCL collectives
+captured with the kernels: the step comes from a device buffer, which the
+kernels read through a pointer, and the draws from the trainer's
+generator inside the graph.  On the CPU they run the eager loop; on a
+card over a group that is not NCCL's they raise
+(``graph.check_capturable``).
 """
 
 from __future__ import annotations
@@ -117,8 +120,9 @@ from force2vec_tpu_torch.dist.spmd import SpmdAxes
 from force2vec_tpu_torch.graphs.csr import Graph, SyncLayout
 from force2vec_tpu_torch.models.forces import get_model
 from force2vec_tpu_torch.ops import force_kernels
-from force2vec_tpu_torch.ops.segment import add_rows
-from force2vec_tpu_torch.train.graph import IterationGraph, StepBuffer
+from force2vec_tpu_torch.ops.segment import hub_owner_sum, owner_offsets
+from force2vec_tpu_torch.train.graph import (IterationGraph, StepBuffer,
+                                             check_capturable)
 from force2vec_tpu_torch.train.trainer import (TrainConfig, iteration_seed,
                                                round_to, step_at)
 
@@ -132,7 +136,10 @@ class DeviceBucket:
     nbr: torch.Tensor  # [rows, width] int32 (split: the cold slots)
     deg: torch.Tensor  # [rows] int32
     xi_row: torch.Tensor  # [rows] int32 table row of each bucket row
-    owner_local: Optional[torch.Tensor] = None  # hub: [rows] int64, - start
+    # hub: where each owner row's run of real virtual rows starts, and the
+    # end of the last (ops/segment.py::owner_offsets); how many there are
+    owner_off: Optional[torch.Tensor] = None  # [n - start + 1] int64
+    n_virtual: int = 0
 
 
 def _split_bucket_rows(b, hot_start: int):
@@ -250,7 +257,6 @@ class SyncForce2Vec:
         # the split-dim kernels (tp_pair_partial, all_reduce, tp_pair_force
         # twice) over the tables _tp_tables lays end to end
         self._tp = spmd.n_tp > 1
-        self.tp_all_reduces = 0  # the pair scalars' all_reduces so far
         self._rsum = spmd.make_rsum()  # the energy update's row norms
         if self.device.type == "cuda":
             if not self._tp:
@@ -288,12 +294,12 @@ class SyncForce2Vec:
         )
         self.lr = config.resolve_lr(self.model)
         self._span_gen = torch.Generator(device=self.device)
-        # run_span on a card at one rank: the iteration as a CUDA graph
+        # run_span on a card: the iteration as a CUDA graph
         # (train/graph.py) reading the step from this buffer
         self._step_buf = StepBuffer(self.device)
-        self.span_graph = IterationGraph(self._prepare_iteration,
-                                         self._static_iteration,
-                                         self._span_gen)
+        self.span_graph = IterationGraph(
+            self._prepare_iteration, self._static_iteration,
+            (self._span_gen,))
 
         lay, dev = self.layout, self.device
         self.inv_deg = torch.as_tensor(
@@ -344,13 +350,15 @@ class SyncForce2Vec:
         hot = []  # (hot_nbr, hot_deg, xi_row, out_begin) of the real rows
         for bi, b in enumerate(lay.buckets):
             if b.owners is not None:
+                off = owner_offsets(b.owners - b.start, b.deg,
+                                    lay.n - b.start)
                 self.device_buckets.append(DeviceBucket(
                     start=b.start,
                     nbr=torch.as_tensor(b.nbr, device=dev),
                     deg=torch.as_tensor(b.deg, device=dev),
                     xi_row=torch.as_tensor(b.owners, device=dev),
-                    owner_local=torch.as_tensor(
-                        b.owners.astype(np.int64) - b.start, device=dev)))
+                    owner_off=torch.as_tensor(off, device=dev),
+                    n_virtual=int(off[-1])))
                 continue
             # Only the bucket's real rows: its row_align padding overlaps
             # the next bucket's first rows.
@@ -365,7 +373,7 @@ class SyncForce2Vec:
             if hot_nbr is not None:
                 hot.append((hot_nbr[:real], hot_deg[:real], xi_row, b.start))
         self._hub = next((b for b in self.device_buckets
-                          if b.owner_local is not None), None)
+                          if b.owner_off is not None), None)
         if self.spmd.n_dp > 1:
             self._dp_edge_table(rows)
         else:
@@ -491,8 +499,9 @@ class SyncForce2Vec:
                                                         local)
         self.hot_table = self._hot_table(hot, local)
         self._dp_src = torch.as_tensor(src, device=dev)
-        self._dp_hub_src = (None if hub_src is None
-                            else torch.as_tensor(hub_src, device=dev))
+        # the hub's real virtual rows, in order (the padding rows add 0)
+        self._dp_hub_src = (None if hub_src is None else torch.as_tensor(
+            hub_src[: self._hub.n_virtual], device=dev))
 
     def split_stats(self) -> dict:
         """The hot/cold split's accounting (the JAX package's
@@ -608,7 +617,7 @@ class SyncForce2Vec:
         part = (fk.tp_pair_partial_plain if plain else fk.tp_pair_partial)(
             model, x, xg, self._tp_cat)
         dist.all_reduce(part, group=self.spmd.tp)
-        self.tp_all_reduces += 1
+        fk.launch_counts["tp_all_reduce"] += 1
         force = fk.tp_pair_force_plain if plain else fk.tp_pair_force
         n_att = self._tp_att.nbr.shape[0]
         att = force(model, "edge", x, xg, self._tp_att, part[:n_att],
@@ -658,19 +667,19 @@ class SyncForce2Vec:
         ranks' ``_edge_table_launch`` slices in rank order, then a 0 row
         (for the rows no bucket writes: the hub's owners and the padding),
         put in row order by the fixed permutation, the hub's partial rows
-        added into their owners."""
+        summed into their owners (``hub_owner_sum``)."""
         upd = g.index_select(0, self._dp_src)
-        if self._hub is not None:
-            add_rows(upd[self._hub.start: self.layout.n],
-                     self._hub.owner_local,
-                     g.index_select(0, self._dp_hub_src))
+        hub = self._hub
+        if hub is not None:
+            hub_owner_sum(upd[hub.start: self.layout.n],
+                          g.index_select(0, self._dp_hub_src), hub.owner_off)
         return upd
 
     def _place_attraction(self, out: torch.Tensor) -> torch.Tensor:
         """[n_pad, D] attraction of the CSR models from this rank's
-        ``_edge_table_launch`` output: the hub's partial rows added into
-        their owners, or under dp the ranks' slices gathered and put in
-        place (``_dp_place``)."""
+        ``_edge_table_launch`` output: the hub's partial rows summed into
+        their owners (``hub_owner_sum``), or under dp the ranks' slices
+        gathered and put in place (``_dp_place``)."""
         n_pad = self.layout.n_pad
         if self.spmd.n_dp > 1:
             local = out.shape[0]
@@ -678,10 +687,10 @@ class SyncForce2Vec:
                             dtype=out.dtype, device=out.device)
             dist.all_gather_into_tensor(g[:-1], out, group=self.spmd.dp)
             return self._dp_place(g)
-        upd = out[:n_pad]
-        if self._hub is not None:
-            add_rows(upd[self._hub.start: self.layout.n],
-                     self._hub.owner_local, out[n_pad:])
+        upd, hub = out[:n_pad], self._hub
+        if hub is not None:
+            hub_owner_sum(upd[hub.start: self.layout.n],
+                          out[n_pad: n_pad + hub.n_virtual], hub.owner_off)
         return upd
 
     def _walk_launch(self, x, xg, walks, step, plain) -> torch.Tensor:
@@ -859,12 +868,17 @@ class SyncForce2Vec:
         (``_draw``), from one reused generator re-seeded from ``(seed,
         absolute iteration)``: spans compose into the straight run.
 
-        On a card at one rank the iteration is a CUDA graph (``span_graph``,
+        On a card the iteration is a CUDA graph (``span_graph``,
         ``train/graph.py``), captured once per X and replayed once per
-        iteration; on the CPU, and under dp or tp (whose NCCL collectives
-        are not captured), the eager loop (``_run_span_eager``)."""
-        if self.device.type != "cuda" or self.spmd.n_dp * self.spmd.n_tp > 1:
+        iteration, its dp and tp collectives with it (every rank captures
+        the same iteration); on the CPU, the eager loop
+        (``_run_span_eager``).  Raises ``RuntimeError`` on a card under a
+        group that is not NCCL's (``graph.check_capturable``)."""
+        if self.device.type != "cuda":
             return self._run_span_eager(x, seed, num_iters, iter_offset)
+        sp = self.spmd
+        check_capturable(sp.dp if sp.n_dp > 1 else None,
+                         sp.tp if sp.n_tp > 1 else None)
         return self.span_graph.run(x, seed, num_iters, iter_offset)
 
     def _run_span_eager(self, x: torch.Tensor, seed: int, num_iters: int,

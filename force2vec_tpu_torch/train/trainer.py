@@ -8,9 +8,9 @@ and batch b+1 observes them (sample/algorithms.cpp:569-639).
 One iteration is a Python loop over the batches, each a fixed, short
 sequence of torch operations on the device and no read back to the host
 (every batch's edge span is computed on the host when the trainer is
-built, ``DeviceGraph.batch_spans``), so that on a card at one rank
-``run_span`` and ``train()`` capture the whole iteration, every batch of
-it, as one CUDA graph and replay it (``train/graph.py``):
+built, ``DeviceGraph.batch_spans``), so that on a card ``run_span`` and
+``train()`` capture the whole iteration, every batch of it and its dp and
+tp collectives, as one CUDA graph and replay it (``train/graph.py``):
 
 * the batch's rows are a view ``[B, D]`` of X;
 * attraction over the batch's CSR edges (one contiguous ``colids`` span):
@@ -57,7 +57,8 @@ from force2vec_tpu_torch.ops.segment import (SEGMENT_MODES,
 from force2vec_tpu_torch.sampling.negative import (per_vertex_windows,
                                                    sample_negative_ids)
 from force2vec_tpu_torch.sampling.walks import sample_walks
-from force2vec_tpu_torch.train.graph import IterationGraph, StepBuffer
+from force2vec_tpu_torch.train.graph import (IterationGraph, StepBuffer,
+                                             check_capturable)
 
 # Bytes of one [B, T, D] f32 temporary of the exact repulsion's column tile
 _REP_TILE_BYTES = 32 << 20
@@ -199,11 +200,11 @@ class Force2Vec:
             dg.n_pad, config.rep_chunk,
             _REP_TILE_BYTES // (bsz * config.dim * 4)))
         self._gen = torch.Generator(device=dev)
-        # run_span on a card at one rank: the iteration as a CUDA graph
+        # run_span on a card: the iteration as a CUDA graph
         # (train/graph.py) reading the step from this buffer
         self._step_buf = StepBuffer(dev)
         self.span_graph = IterationGraph(self._prepare_iteration,
-                                         self._static_iteration, self._gen)
+                                         self._static_iteration, (self._gen,))
 
     # -- embedding layout ---------------------------------------------------
 
@@ -382,13 +383,17 @@ class Force2Vec:
         iteration draws from a generator re-seeded from ``(seed, absolute
         iteration)``, so spans compose into the straight run.
 
-        On a card at one rank the iteration, every batch of it, is a CUDA
-        graph (``span_graph``, ``train/graph.py``), captured once per X and
-        replayed once per iteration; on the CPU, and under dp or tp (whose
-        NCCL collectives are not captured), the eager loop
-        (``_run_span_eager``)."""
-        if self.device.type != "cuda" or self.spmd.n_dp * self.spmd.n_tp > 1:
+        On a card the iteration, every batch of it, is a CUDA graph
+        (``span_graph``, ``train/graph.py``), captured once per X and
+        replayed once per iteration, with its dp and tp collectives (every
+        rank captures the same iteration); on the CPU, the eager loop
+        (``_run_span_eager``).  Raises ``RuntimeError`` on a card under a
+        group that is not NCCL's (``graph.check_capturable``)."""
+        if self.device.type != "cuda":
             return self._run_span_eager(x, seed, num_iters, iter_offset)
+        sp = self.spmd
+        check_capturable(sp.dp if sp.n_dp > 1 else None,
+                         sp.tp if sp.n_tp > 1 else None)
         return self.span_graph.run(x, seed, num_iters, iter_offset)
 
     def _step(self, it: int) -> float:

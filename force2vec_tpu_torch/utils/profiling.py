@@ -8,9 +8,13 @@ Here: per-phase timers, work counters and a rate in the benchmark's unit
 
 A phase on a card is timed by a pair of CUDA events on the current stream,
 so timing adds no host sync to the loop: the elapsed times are read when
-``seconds`` is, after one sync.  Each phase is also an NVTX range, which
-a ``torch.profiler`` or Nsight trace shows by name.  On the CPU a phase is
-timed by the host clock.
+``seconds`` is, after one sync.  A phase entered while a CUDA graph is
+captured (``train/graph.py::IterationGraph`` with this meter) records its
+events as the graph's external event nodes, which every replay records
+again: the graph adds each replay's times (``add_replay``), waiting for
+the replay, so a metered graph costs one host sync an iteration.  Each
+phase is also an NVTX range, which a ``torch.profiler`` or Nsight trace
+shows by name.  On the CPU a phase is timed by the host clock.
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ class Meter:
         self.device = torch.device(device)
         self._host: Dict[str, float] = {}
         self._events: Dict[str, list] = {}
+        self._replayed: Dict[str, float] = {}  # seconds of graph replays
+        self._captured: Optional[dict] = None  # where a capture's go
         self.counts: Dict[str, float] = {}
 
     @contextlib.contextmanager
@@ -49,8 +55,15 @@ class Meter:
                     self._host[name] = (self._host.get(name, 0.0)
                                         + time.perf_counter() - t0)
                 return
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
+            # in a capture: event record nodes of the graph
+            external = torch.cuda.is_current_stream_capturing()
+            if external and self._captured is None:
+                raise RuntimeError(
+                    f"Meter phase {name!r} entered in a CUDA graph capture "
+                    "that does not time its replays: attach the meter to "
+                    "the IterationGraph")
+            start = torch.cuda.Event(enable_timing=True, external=external)
+            end = torch.cuda.Event(enable_timing=True, external=external)
             stream = torch.cuda.current_stream(self.device)
             torch.cuda.nvtx.range_push(name)
             start.record(stream)
@@ -59,17 +72,37 @@ class Meter:
             finally:
                 end.record(stream)
                 torch.cuda.nvtx.range_pop()
-                self._events.setdefault(name, []).append((start, end))
+                (self._captured if external else self._events).setdefault(
+                    name, []).append((start, end))
+
+    @contextlib.contextmanager
+    def capturing(self, events: dict):
+        """The phases of a graph's capture record into ``events``."""
+        self._captured = events
+        try:
+            yield
+        finally:
+            self._captured = None
+
+    def add_replay(self, events: dict) -> None:
+        """Add the phase times of the replay just launched of a graph
+        whose capture recorded ``events`` (waits for the replay)."""
+        for name, pairs in events.items():
+            pairs[-1][1].synchronize()
+            self._replayed[name] = (self._replayed.get(name, 0.0) + sum(
+                s.elapsed_time(e) for s, e in pairs) / 1e3)
 
     @property
     def seconds(self) -> Dict[str, float]:
         """Seconds per phase: host clock, or the device's between each
-        phase's events (waits for them)."""
+        phase's events (waits for them) and in each graph replay."""
         out = dict(self._host)
         for name, pairs in self._events.items():
             if pairs:
                 pairs[-1][1].synchronize()
             out[name] = sum(s.elapsed_time(e) for s, e in pairs) / 1e3
+        for name, sec in self._replayed.items():
+            out[name] = out.get(name, 0.0) + sec
         return out
 
     def count(self, name: str, value: float) -> None:

@@ -144,7 +144,7 @@ def test_edge_table_covers_every_bucket_row_once(layout):
     np.testing.assert_array_equal(written, 1)
     by_start = {ob: (nbr, deg, xi_row) for nbr, deg, xi_row, ob in parts}
     for b in fv.device_buckets:
-        nbr, deg, xi_row = by_start[lay.n_pad if b.owner_local is not None
+        nbr, deg, xi_row = by_start[lay.n_pad if b.owner_off is not None
                                     else b.start]
         assert torch.equal(nbr, b.nbr) and torch.equal(deg, b.deg)
         assert torch.equal(xi_row, b.xi_row)
@@ -169,7 +169,7 @@ def test_edge_table_plain_is_the_per_bucket_loop(name):
     for b in fv.device_buckets:
         rows = fk.ell_edge_force_plain(model, x, xg, b.nbr, b.deg, b.xi_row,
                                        fv.inv_deg, STEP)
-        start = n_pad if b.owner_local is not None else b.start
+        start = n_pad if b.owner_off is not None else b.start
         want[start: start + rows.shape[0]] = rows
     assert torch.equal(got, want)
 
@@ -428,7 +428,7 @@ def test_plain_path_launches_nothing():
                             fv.edge_table, fv.inv_deg, STEP)
     assert fk.launch_counts == {"ell_edge_force": 0, "grouped_rep_force": 0,
                                 "ell_sample_force": 0, "tp_pair_partial": 0,
-                                "tp_pair_force": 0}
+                                "tp_pair_force": 0, "tp_all_reduce": 0}
 
 
 def test_build_names_library_by_source_hash(monkeypatch, tmp_path):

@@ -6,10 +6,12 @@ and ``Results.txt`` row; a checkpointed two-rank vertex run resumes equal
 to a straight run; and every module of the port imports with JAX and the
 JAX package blocked."""
 
+import gc
 import os
 import subprocess
 import sys
 import time
+import weakref
 
 import numpy as np
 import pytest
@@ -23,6 +25,7 @@ from force2vec_tpu_torch.graphs import synth_powerlaw_graph
 from force2vec_tpu_torch.graphs.io import read_embeddings
 from force2vec_tpu_torch.graphs.tools import write_mtx
 from force2vec_tpu_torch.train.checkpoint import load_checkpoint
+from force2vec_tpu_torch.train.graph import IterationGraph
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ITERS = 4
@@ -90,6 +93,63 @@ def test_spawn_runs_ranks_and_fails_fast():
         multihost.spawn(_fail_or_hang, 2, args=("hang",), timeout=60,
                         threads=1, wait=5)
     assert time.monotonic() - t0 < 40
+
+
+def _slow_to_leave(rank, world):
+    """A rank whose group teardown never ends (as NCCL's does under a live
+    CUDA graph that captured the group's collectives): its result is
+    written before it."""
+    dist.destroy_process_group = lambda: time.sleep(600)
+    return rank
+
+
+def test_spawn_raises_when_a_rank_cannot_leave_its_group(monkeypatch):
+    """Ranks that have written their results and hang while leaving the
+    group are killed after ``EXIT_GRACE`` seconds and ``spawn`` raises,
+    even with no time limit (``wait=math.inf``, as the command line
+    spawns)."""
+    monkeypatch.setattr(multihost, "EXIT_GRACE", 1.0)
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="did not leave their process"):
+        multihost.spawn(_slow_to_leave, 2, threads=1, wait=float("inf"))
+    assert time.monotonic() - t0 < 60
+
+
+class _Trainer:
+    """A trainer and its graph, which hold each other as the runners'
+    do."""
+
+    def __init__(self):
+        self.span_graph = IterationGraph(self._prepare, self._body, ())
+        self.span_graph.graphs, self.span_graph.key = ["captured"], ("x",)
+
+    def _prepare(self, seed, it):
+        pass
+
+    def _body(self, x):
+        pass
+
+
+def test_shutdown_drops_every_graph_before_the_group(monkeypatch):
+    """``shutdown`` resets every live ``IterationGraph``, one whose trainer
+    only a reference cycle keeps alive too, before it destroys the group:
+    NCCL destroys a communicator only once no graph that captured it is
+    left."""
+    live = _Trainer()
+    collecting = gc.isenabled()
+    gc.disable()  # the dead trainer's cycle stays until shutdown
+    try:
+        dead = weakref.ref(_Trainer().span_graph)
+        seen = []
+        monkeypatch.setattr(dist, "is_initialized", lambda: True)
+        monkeypatch.setattr(dist, "destroy_process_group", lambda: seen.append(
+            (live.span_graph.graphs, dead().graphs)))
+        multihost.shutdown()
+    finally:
+        if collecting:
+            gc.enable()
+    assert seen == [([], [])]
+    assert live.span_graph.key is None
 
 
 @pytest.mark.parametrize("schedule", ["vertex", "sync"])

@@ -7,10 +7,17 @@ own bound for its sharded runners).  The batch trainer with tdist,
 sigmoid and per-vertex negatives; the sync trainer with group-shared and
 per-vertex negatives and rwalk (a hub bucket included).  One group of 2
 ranks computes (2, 1) and (1, 2); one of 4 ranks computes (2, 2).  The
-ranks import no JAX."""
+ranks import no JAX.
+
+The code a card captures as a CUDA graph, every rank's iteration with its
+collectives, run eagerly (``span_graph.run_uncaptured``: the step from the
+step buffer, the draws from the re-seeded generator) equals each runner's
+eager loop bit for bit, straight and in spans, at every (dp, tp); and on a
+card a gloo group is refused by name."""
 
 import numpy as np
 import pytest
+import torch
 
 from force2vec_tpu_torch.dist import multihost
 from force2vec_tpu_torch.graphs import synth_powerlaw_graph
@@ -91,9 +98,35 @@ def _ranks(rank, world, tps, x_host, draws):
             x = runner.pad_embedding(x_host)
             for negs, walks in draws[name]:
                 runner.run_iteration(x, negs, walks=walks)
+            graph = runner.span_graph.run_uncaptured
+            xg, xs = runner.init_embedding(3), runner.init_embedding(3)
+            graph(xg, 3, ITERS)
+            for it in range(ITERS):  # spans of one iteration
+                graph(xs, 3, 1, it)
             out[(world // tp, tp, name)] = (
                 runner.unpad_embedding(x).numpy(),
-                runner.train(ITERS, seed=3).numpy())
+                runner.train(ITERS, seed=3).numpy(),
+                runner.unpad_embedding(xg).numpy(),
+                runner.unpad_embedding(xs).numpy())
+        out[(world // tp, tp, "refusal")] = _card_refusals(spmd)
+    return out
+
+
+def _card_refusals(spmd):
+    """What each trainer's ``run_span`` raises on a card under these gloo
+    groups (built on the CPU, then told its device is a card: the refusal
+    comes before any device work)."""
+    out = []
+    for runner in (Force2Vec(_graph(), _config({}), spmd=spmd, device="cpu"),
+                   SyncForce2Vec(_graph(), _config({}), spmd=spmd,
+                                 device="cpu", **LAYOUT)):
+        x = runner.init_embedding(1)
+        runner.device = torch.device("cuda")
+        try:
+            runner.run_span(x, 1, 2)
+            out.append(None)
+        except RuntimeError as e:
+            out.append(str(e))
     return out
 
 
@@ -162,7 +195,7 @@ def _jax_iterations(dp, tp, schedule, over, x_host, its):
 def test_sharded_iterations_match_jax(port, inputs, dp, tp, case):
     x_host, draws = inputs
     _, schedule, over = next(c for c in CASES if c[0] == case)
-    got, _ = port[(dp, tp, case)]
+    got = port[(dp, tp, case)][0]
     want = _jax_iterations(dp, tp, schedule, over, x_host, draws[case])
     np.testing.assert_allclose(got, want, **TOL)
 
@@ -171,9 +204,25 @@ def test_sharded_iterations_match_jax(port, inputs, dp, tp, case):
 @pytest.mark.parametrize("dp,tp", MESHES)
 def test_sharded_training_matches_single_process(port, dp, tp, case):
     _, schedule, over = next(c for c in CASES if c[0] == case)
-    _, got = port[(dp, tp, case)]
+    got = port[(dp, tp, case)][1]
     want = _single(schedule, over).train(ITERS, seed=3)
     np.testing.assert_allclose(got, want.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("case", [c[0] for c in CASES])
+@pytest.mark.parametrize("dp,tp", MESHES)
+def test_sharded_uncaptured_span_equals_the_eager_loop(port, dp, tp, case):
+    """``train()`` on the CPU runs the eager loop; the graph's code,
+    uncaptured, straight and in spans of one iteration, is its bits."""
+    _, eager, graph, spans = port[(dp, tp, case)]
+    np.testing.assert_array_equal(graph, eager)
+    np.testing.assert_array_equal(spans, eager)
+
+
+@pytest.mark.parametrize("dp,tp", MESHES)
+def test_run_span_refuses_a_gloo_group_on_a_card(port, dp, tp):
+    for msg in port[(dp, tp, "refusal")]:
+        assert msg is not None and "gloo" in msg and "run_iteration" in msg
 
 
 def test_sharded_runners_reject_indivisible_shapes():

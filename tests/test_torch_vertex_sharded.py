@@ -9,13 +9,22 @@ iteration against the exact schedule, the distributed walk engine's steps
 against the graph's edges, and short training runs.  One group of 4 ranks
 computes every P = 4 case; the ranks import no JAX.  Also the kernel
 wrappers on a shard's operands: they pass, and an index one past either
-table raises."""
+table raises.
+
+The code a card captures as a CUDA graph, run eagerly
+(``span_graph.run_uncaptured``: the step from the step buffer, the draws
+from the re-seeded generators, ``halo_stale``'s two static tables), equals
+the eager loop (``_run_span_eager``) bit for bit, straight, in spans and
+resumed from the embedding, for ``shared``, ``pool``, rwalk and
+``halo_stale``, at P = 1 and on the 4 gloo ranks; and on a card a gloo
+group is refused by name."""
 
 import contextlib
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from force2vec_tpu_torch.dist import multihost
 from force2vec_tpu_torch.dist.vertex_sharded import (ShardTables,
@@ -114,6 +123,9 @@ def _port_ranks(rank, world, inp):
                           a2a.comm_stats())
     gen = torch.Generator().manual_seed(3)
     out["walks"] = (ring.draw_walks(gen).numpy(), ring.layout.gmap[rank])
+    for mode in SPAN_MODES:
+        out[f"span_{mode}"] = _span_runs(mode)
+    out["refusal"] = _card_refusal()
     for k, v in out.items():  # tensors to numpy for the parent
         if isinstance(v, tuple):
             out[k] = tuple(t.numpy() if isinstance(t, torch.Tensor) else t
@@ -121,6 +133,82 @@ def _port_ranks(rank, world, inp):
         elif isinstance(v, torch.Tensor):
             out[k] = v.numpy()
     return out
+
+
+# the runner's modes whose captured span the tests run uncaptured
+SPAN_MODES = {"shared": {}, "pool": dict(sampling="pool", neg_pool=NEG_POOL),
+              "rwalk": dict(model="rwalk"), "halo_stale": dict(halo_stale=True)}
+SPAN_ITERS, SPANS = 6, (1, 3, 2)
+
+
+def _everywhere(v, emb):
+    """Rank 0's ``unpad_embedding`` on every rank."""
+    if v.P == 1:
+        return emb
+    obj = [emb]
+    dist.broadcast_object_list(obj, src=v._ranks[0], group=v.group)
+    return obj[0]
+
+
+def _span_runs(mode):
+    """The runner's eager loop and its graph's code run uncaptured, each
+    straight, in SPANS and resumed at iteration 3 from the embedding
+    (``pad_embedding`` of ``unpad_embedding``); rank 0's ``[n, D]`` of
+    each (None on the other ranks)."""
+    kw = dict(SPAN_MODES[mode])
+    model = kw.pop("model", "tdist")
+    v = VertexShardedForce2Vec(_graph(), TrainConfig(dim=DIM, model=model,
+                                                     ns=NS),
+                               device="cpu", **LAYOUT, **kw)
+    x0 = v.init_embedding(seed=5)
+
+    def spans(run, x, ks, done=0):
+        for k in ks:
+            run(x, 5, k, done)
+            done += k
+        return x
+
+    eager, graph = v._run_span_eager, v.span_graph.run_uncaptured
+    runs = {"eager": spans(eager, x0.clone(), (SPAN_ITERS,)),
+            "graph": spans(graph, x0.clone(), (SPAN_ITERS,)),
+            "eager_spans": spans(eager, x0.clone(), SPANS),
+            "graph_spans": spans(graph, x0.clone(), SPANS),
+            "eager_resumed": spans(eager, x0.clone(), (3, 3))}
+    half = _everywhere(v, v.unpad_embedding(spans(graph, x0.clone(), (3,))))
+    runs["resumed"] = spans(graph, v.pad_embedding(half), (3,), 3)
+    runs["x0"] = x0
+    out = {k: v.unpad_embedding(x) for k, x in runs.items()}
+    return {k: (None if e is None else e.numpy()) for k, e in out.items()}
+
+
+def _card_refusal():
+    """What ``run_span`` raises on a card over this gloo group (the runner
+    built on the CPU, then told its device is a card: the refusal comes
+    before any device work)."""
+    v = VertexShardedForce2Vec(_graph(), TrainConfig(dim=DIM, ns=NS),
+                               device="cpu", **LAYOUT)
+    x = v.init_embedding(1)
+    v.device = torch.device("cuda")
+    try:
+        v.run_span(x, 1, 2)
+    except RuntimeError as e:
+        return str(e)
+    return None
+
+
+def _assert_span_runs(runs, mode):
+    """The uncaptured graph equals the eager loop bit for bit, straight,
+    in spans and resumed; off ``halo_stale`` the spans and the resumed run
+    equal the straight run (with it, each span primes its first
+    iteration's exchange, as the eager loop's spans do)."""
+    np.testing.assert_array_equal(runs["graph"], runs["eager"])
+    np.testing.assert_array_equal(runs["graph_spans"], runs["eager_spans"])
+    np.testing.assert_array_equal(runs["resumed"], runs["eager_resumed"])
+    if mode != "halo_stale":
+        np.testing.assert_array_equal(runs["eager_spans"], runs["eager"])
+        np.testing.assert_array_equal(runs["resumed"], runs["eager"])
+    assert not np.array_equal(runs["eager"], runs["x0"])
+    assert np.isfinite(runs["eager"]).all()
 
 
 @pytest.fixture(scope="module")
@@ -332,3 +420,69 @@ def test_wrappers_take_a_shards_operands():
     with pytest.raises(ValueError, match="rows"):  # x's rows not first
         fk.ell_edge_force_table(model, x, tab[: n_loc - 1], t.dep, t.inv_deg,
                                 0.02, out=upd)
+
+
+# -- the graph's code, uncaptured, against the eager loop ----------------------
+
+
+@pytest.mark.parametrize("mode", list(SPAN_MODES))
+def test_uncaptured_span_equals_the_eager_loop_at_p1(mode):
+    _assert_span_runs(_span_runs(mode), mode)
+
+
+@pytest.mark.parametrize("mode", list(SPAN_MODES))
+def test_uncaptured_span_equals_the_eager_loop_at_p4(port, mode):
+    _assert_span_runs(port[f"span_{mode}"], mode)
+
+
+def test_run_span_refuses_a_gloo_group_on_a_card(port):
+    assert port["refusal"] is not None and "gloo" in port["refusal"]
+    assert "run_iteration" in port["refusal"]
+
+
+def test_run_span_on_the_cpu_is_the_eager_loop():
+    """At P = 1 on the CPU ``run_span`` is the eager loop, and captures
+    nothing."""
+    v = VertexShardedForce2Vec(_graph(), TrainConfig(dim=DIM, ns=NS,
+                                                     model="fr"),
+                               device="cpu", **LAYOUT)
+    x0 = v.init_embedding(seed=2)
+    want, got = x0.clone(), x0.clone()
+    v._run_span_eager(want, 2, 4)
+    assert v.run_span(got, 2, 4) is got
+    assert torch.equal(got, want)
+    assert v.span_graph.captures == 0 and not v.span_graph.graphs
+
+
+def test_the_step_buffer_holds_each_iterations_step():
+    """fr decays its step: the graph's step buffer holds ``step_at`` of
+    the iteration being prepared, and a meter set on the runner is the
+    graph's, its old graph dropped."""
+    from force2vec_tpu_torch.train.trainer import step_at
+    from force2vec_tpu_torch.utils.profiling import Meter
+
+    v = VertexShardedForce2Vec(_graph(), TrainConfig(dim=DIM, ns=NS,
+                                                     model="fr",
+                                                     dtype="bfloat16"),
+                               device="cpu", **LAYOUT)
+    for it in (0, 1, 7, 500):
+        v._prepare_iteration(3, it)
+        assert float(v._step_buf.tensor) == step_at(
+            get_model("fr"), v.lr, it, torch.bfloat16)
+    v.span_graph.key = ("a captured X",)
+    m = Meter("cpu")
+    v.meter = m
+    assert v.span_graph.meter is m and v.span_graph.key is None
+
+
+@pytest.mark.parametrize("dtype", ("bfloat16", "float16"))
+def test_init_embedding_of_a_two_byte_x_is_the_f32_init_rounded(dtype):
+    """The runner draws its init in f32 and rounds it to X's dtype: the
+    same X as an f32 runner's, rounded."""
+    cfg = TrainConfig(dim=DIM, ns=NS, model="fr")
+    v32 = VertexShardedForce2Vec(_graph(), cfg, device="cpu", **LAYOUT)
+    v16 = VertexShardedForce2Vec(_graph(), TrainConfig(
+        dim=DIM, ns=NS, model="fr", dtype=dtype), device="cpu", **LAYOUT)
+    got = v16.init_embedding(seed=4)
+    assert got.dtype == getattr(torch, dtype)
+    assert torch.equal(got, v32.init_embedding(seed=4).to(got.dtype))
