@@ -33,7 +33,10 @@ tp runners (``dist/sharded.py``, ``--tp`` ranks share the dim) and
 ``Results.txt``, checkpoints and the evaluation.
 
 Run summaries append to ``Results.txt`` with the reference's ledger
-schema (Test/Force2Vec.cpp:191-198).
+schema (Test/Force2Vec.cpp:191-198).  ``--verbose`` also prints, after
+training, the command's spans and counters (``utils/profiling.py``:
+the graph's load, the trainer's set-up, the kernels' load, the warm-up,
+capture and replays) to standard error, one line each.
 """
 
 from __future__ import annotations
@@ -127,7 +130,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (the default; exits if there is no card) or "
                    "cpu")
-    p.add_argument("--verbose", action="store_true")
+    p.add_argument("--verbose", action="store_true",
+                   help="progress lines, and after training the spans and "
+                   "counters (utils/profiling.py) on standard error")
     return p
 
 
@@ -191,8 +196,10 @@ def _run(args, device) -> int:
     import torch
 
     from force2vec_tpu_torch.dist import multihost
+    from force2vec_tpu_torch.utils import profiling
 
     world = multihost.world_size()
+    profiling.reset()  # --verbose reports this command's spans alone
 
     from force2vec_tpu_torch.graphs.io import load_graph, write_embeddings
     from force2vec_tpu_torch.models.forces import get_model
@@ -289,6 +296,8 @@ def _run(args, device) -> int:
     train_s = time.perf_counter() - t0
     if not multihost.is_coordinator():
         return 0  # only rank 0 writes the output, the ledger and the eval
+    if args.verbose:
+        print(profiling.report(), file=sys.stderr)
 
     # output name parity: <graph><ALGO><B>D<D>IT<it>NS<ns>.embd
     # (algorithms.cpp:650; writeToFile, algorithms.h:118-136)

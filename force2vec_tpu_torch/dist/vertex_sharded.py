@@ -91,6 +91,7 @@ from force2vec_tpu_torch.train.graph import (IterationGraph, StepBuffer,
                                              check_capturable)
 from force2vec_tpu_torch.train.trainer import (TrainConfig, iteration_seed,
                                                round_to, step_at)
+from force2vec_tpu_torch.utils.profiling import span
 
 _INT32_MAX = 2**31 - 1
 _INIT_CHUNK = 1 << 20  # rows of the initial X drawn at a time
@@ -305,6 +306,7 @@ class VertexShardedForce2Vec:
     methods in the same order: most of them run collectives.
     """
 
+    @span("trainer.init")
     def __init__(
         self,
         graph: Graph,

@@ -17,6 +17,8 @@ from typing import Optional
 
 import numpy as np
 
+from force2vec_tpu_torch.utils.profiling import span
+
 
 @dataclasses.dataclass
 class Graph:
@@ -38,6 +40,7 @@ class Graph:
         return np.diff(self.rowptr)
 
     @staticmethod
+    @span("graph.from_coo")
     def from_coo(
         rows: np.ndarray,
         cols: np.ndarray,
@@ -283,6 +286,7 @@ class SyncLayout:
         return widths
 
     @staticmethod
+    @span("trainer.layout")
     def build(
         graph: Graph,
         min_width: int = 8,
@@ -449,6 +453,7 @@ class DeviceGraph:
     max_batch_edges: int
 
     @staticmethod
+    @span("trainer.layout")
     def build(graph: Graph, batch_size: int,
               edge_chunk: int = 2048) -> "DeviceGraph":
         n = graph.n

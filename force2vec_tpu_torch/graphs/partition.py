@@ -38,6 +38,7 @@ import dataclasses
 import numpy as np
 
 from force2vec_tpu_torch.graphs.csr import Graph, _round_up
+from force2vec_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -81,6 +82,7 @@ class VertexShardLayout:
     stats: dict  # exchange metrics (vs the uniform worst-pair v1 design)
 
     @staticmethod
+    @span("trainer.layout")
     def build(
         graph: Graph,
         n_shards: int,

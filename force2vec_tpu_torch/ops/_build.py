@@ -22,6 +22,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from force2vec_tpu_torch.utils.profiling import counter, span
+
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = (
@@ -167,9 +169,12 @@ def build() -> Path:
     """Compile the kernels unless the library for these sources exists:
     one nvcc per job (``jobs``), all at once, then one link.  Returns the
     library's path.  The compilers' output goes to a ``.log`` beside it
-    (``-Xptxas=-v``: registers, shared memory and spills per kernel)."""
+    (``-Xptxas=-v``: registers, shared memory and spills per kernel).  The
+    counter ``kernels.nvcc_jobs`` gains the compile jobs run (0 where the
+    library was there; the link is not counted)."""
     lib = library_path()
     if lib.exists():
+        counter("kernels.nvcc_jobs", 0)
         return lib
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -181,6 +186,7 @@ def build() -> Path:
             objs.append(os.path.join(tmp, stem + ".o"))
             cmds.append([nvcc, *NVCC_FLAGS, *defines, "-c", "-o", objs[-1],
                          str(src)])
+        counter("kernels.nvcc_jobs", len(cmds))
         log = _run(cmds)
         so = os.path.join(tmp, lib.name)
         _run([[nvcc, "-shared", "-o", so, *objs]])
@@ -190,8 +196,10 @@ def build() -> Path:
 
 
 @functools.lru_cache(maxsize=None)
+@span("kernels.load")
 def load_library() -> ctypes.CDLL:
-    """Build if needed, load once per process, declare every signature."""
+    """Build if needed, load once per process, declare every signature
+    (the span ``kernels.load``: the sources' hash, a build, the load)."""
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -56,7 +56,6 @@ from __future__ import annotations
 
 import contextlib
 import gc
-import time
 import weakref
 from typing import Callable, Optional, Sequence, Union
 
@@ -64,6 +63,7 @@ import torch
 import torch.distributed as dist
 
 from force2vec_tpu_torch.ops import force_kernels
+from force2vec_tpu_torch.utils.profiling import counter, span
 
 
 def check_capturable(*groups) -> None:
@@ -125,12 +125,15 @@ class IterationGraph:
     span: start, prepare, then the body eagerly (the warm-up) and a
     capture of each body where X is new, then prepare and a replay for
     each other iteration.  ``meter``: a ``Meter`` whose phases the bodies
-    enter, timed at every replay.
+    enter, timed at every replay.  The warm-up, the captures and each
+    replay are the spans ``span.warmup``, ``span.capture`` and
+    ``span.replay`` (``utils/profiling.py``; the counter ``span.replays``).
 
     After a capture: ``capture_seconds`` (host time of the captures and
-    the graphs' instantiation), ``pool_bytes`` (the device memory of the
-    graphs' private pools), ``counts`` (kernel launches per replay) and
-    ``captures`` (how many times this trainer captured).
+    the graphs' instantiation, the last ``span.capture``), ``pool_bytes``
+    (the device memory of the graphs' private pools), ``counts`` (kernel
+    launches per replay) and ``captures`` (how many times this trainer
+    captured).
     """
 
     def __init__(self, prepare: Callable[[int, int], None],
@@ -166,13 +169,15 @@ class IterationGraph:
             its = its[1:]
         n = len(self._bodies)
         for it in its:
-            q = it % n
-            self._prepare(seed, it)
-            self.graphs[q].replay()
-            for name, k in self._deltas[q].items():
-                force_kernels.launch_counts[name] += k
-            if self.meter is not None:
-                self.meter.add_replay(self._phases[q])
+            with span("span.replay"):
+                q = it % n
+                self._prepare(seed, it)
+                self.graphs[q].replay()
+                for name, k in self._deltas[q].items():
+                    force_kernels.launch_counts[name] += k
+                if self.meter is not None:
+                    self.meter.add_replay(self._phases[q])
+        counter("span.replays", len(its))
         return x
 
     def run_uncaptured(self, x: torch.Tensor, seed: int, num_iters: int,
@@ -203,7 +208,7 @@ class IterationGraph:
         self.reset()  # the old graphs' pools go first
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
+        with torch.cuda.stream(stream), span("span.warmup"):
             self._prepare(seed, it)
             self._bodies[it % len(self._bodies)](x)
         # A trainer and its graph hold each other: a dead trainer's graph
@@ -213,35 +218,36 @@ class IterationGraph:
         gc.collect()
         collecting = gc.isenabled()
         gc.disable()
-        t0 = time.perf_counter()
         graphs, deltas, phases = [], [], []
         try:
-            for body in self._bodies:
-                graph = torch.cuda.CUDAGraph()
-                for gen in self._gens:
-                    graph.register_generator_state(gen)
-                before = dict(force_kernels.launch_counts)
-                events: dict = {}
-                capturing = (self.meter.capturing(events)
-                             if self.meter is not None
-                             else contextlib.nullcontext())
-                # thread_local: a checkpoint writer thread, or the NCCL
-                # watchdog, may query events while this thread captures
-                with capturing, torch.cuda.graph(
-                        graph, stream=stream,
-                        capture_error_mode="thread_local"):
-                    body(x)
-                # the capture launched nothing: its raises are each replay's
-                counts = force_kernels.launch_counts
-                deltas.append({k: counts[k] - before[k] for k in counts
-                               if counts[k] != before[k]})
-                counts.update(before)
-                graphs.append(graph)
-                phases.append(events)
+            with span("span.capture") as timed:
+                for body in self._bodies:
+                    graph = torch.cuda.CUDAGraph()
+                    for gen in self._gens:
+                        graph.register_generator_state(gen)
+                    before = dict(force_kernels.launch_counts)
+                    events: dict = {}
+                    capturing = (self.meter.capturing(events)
+                                 if self.meter is not None
+                                 else contextlib.nullcontext())
+                    # thread_local: a checkpoint writer thread, or the NCCL
+                    # watchdog, may query events while this thread captures
+                    with capturing, torch.cuda.graph(
+                            graph, stream=stream,
+                            capture_error_mode="thread_local"):
+                        body(x)
+                    # the capture launched nothing: its raises are each
+                    # replay's
+                    counts = force_kernels.launch_counts
+                    deltas.append({k: counts[k] - before[k] for k in counts
+                                   if counts[k] != before[k]})
+                    counts.update(before)
+                    graphs.append(graph)
+                    phases.append(events)
         finally:
             if collecting:
                 gc.enable()
-        self.capture_seconds = time.perf_counter() - t0
+        self.capture_seconds = timed.seconds
         pools = {tuple(g.pool()) for g in graphs}
         self.pool_bytes = sum(
             seg["total_size"] for seg in torch.cuda.memory_snapshot()

@@ -125,6 +125,7 @@ from force2vec_tpu_torch.train.graph import (IterationGraph, StepBuffer,
                                              check_capturable)
 from force2vec_tpu_torch.train.trainer import (TrainConfig, iteration_seed,
                                                round_to, step_at)
+from force2vec_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -222,6 +223,7 @@ class SyncForce2Vec:
     §9.6); walk models take 0.
     """
 
+    @span("trainer.init")
     def __init__(
         self,
         graph: Graph,

@@ -59,6 +59,7 @@ from force2vec_tpu_torch.sampling.negative import (per_vertex_windows,
 from force2vec_tpu_torch.sampling.walks import sample_walks
 from force2vec_tpu_torch.train.graph import (IterationGraph, StepBuffer,
                                              check_capturable)
+from force2vec_tpu_torch.utils.profiling import span
 
 # Bytes of one [B, T, D] f32 temporary of the exact repulsion's column tile
 _REP_TILE_BYTES = 32 << 20
@@ -150,6 +151,7 @@ class Force2Vec:
         emb = fv.train(iters=1200, seed=1)  # [n, 128] tensor on the card
     """
 
+    @span("trainer.init")
     def __init__(self, graph: Graph, config: TrainConfig = TrainConfig(), *,
                  spmd: SpmdAxes = SpmdAxes(), device="cuda"):
         if config.segment_mode not in SEGMENT_MODES:

@@ -237,16 +237,10 @@ def test_port_imports_with_jax_blocked():
 
 
 def test_meter_times_phases_on_the_cpu():
-    from force2vec_tpu_torch.utils.profiling import Meter, phase_timer, trace
+    from force2vec_tpu_torch.utils.profiling import Meter
 
     m = Meter("cpu")
     for _ in range(2):
         with m.phase("a"):
             torch.ones(64).sum()
-    m.count("edges", 10)
-    assert m.seconds["a"] > 0 and m.rate("edges", "a") > 0
-    assert "a:" in m.report() and "edges: 10" in m.report()
-    with phase_timer("b", verbose=False):
-        pass
-    with trace(None) as prof:
-        assert prof is None
+    assert m.seconds["a"] > 0
