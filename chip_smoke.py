@@ -22,11 +22,12 @@ the main path, tdist with 256-row group-shared negatives (``-option 5``):
    queued ahead of the device, beside its per-bucket launches; then shows
    that the same bound rejects four planted faults;
 4. runs one iteration through the kernels and through the plain versions
-   from the same X and negatives (no ``add_``: the repulsion launch
+   from the same X and negatives (no ``add_``: the fused pass, path M,
    applies X += update + repulsion), and times both;
-5. trains 50 iterations through the kernels, checks the launch counts (one
-   edge launch per iteration), that X is finite, and that edges end closer
-   than random pairs;
+5. trains 50 iterations through the kernels, checks the launch counts (the
+   fused pass's two launches per iteration, the second over the hub's
+   owner rows), that X is finite, and that edges end closer than random
+   pairs;
 
 path A, tdist with per-vertex negatives (``-option 5 -bs 1``):
 
@@ -35,8 +36,8 @@ path A, tdist with per-vertex negatives (``-option 5 -bs 1``):
    ``out`` (``accumulate=True``, as the path runs it) equals ``out.add_``
    of its result bit for bit, times it, and shows that the bound rejects
    two planted faults;
-7. one iteration both ways, timed, with one ``add_`` (X += update) and no
-   other; 50 training iterations with exact launch counts, X finite, edges
+7. one iteration both ways, timed, with no ``add_`` (the fused pass
+   applies X += update); 50 training iterations with exact launch counts, X finite, edges
    closer than random pairs;
 
 path B, ``rwalk`` (``-option 7``, walk length 5, group-shared negatives):
@@ -253,7 +254,8 @@ repulsion in place, the main path's and rwalk's last launch):
     a launch holds (a launch a chunk, the f32 sums passed on) in each
     mode; every sample model's ``add`` and ``apply`` bit for bit at the
     bench dim, and ``apply`` with an energy model refused;
-44. (J3) one iteration of main (f32 and bf16 X), rwalk and linlog in the
+44. (J3) one iteration of main (f32 X gathering from itself, where no
+    fused pass runs, and bf16 X), rwalk and linlog in the
     mode the trainer derives (apply, add for linlog; store under dp): the
     launch against the store launch and the ``add_``s composed from copies
     of its operands, bit for bit; an ``apply`` iteration calls no
@@ -328,11 +330,32 @@ after path J in the full run:
     kernels' device ms in each, capture seconds, the graph's pool beside
     the eager iteration's peak.
 
+path M, the fused pass (``ell_edge_apply``: attraction, repulsion and X
++= update in one launch, which the sync trainer runs at one rank with an
+f32 X beside a bf16 or f16 replica; the main path, paths A and D, G2's
+tdist runs, K3's f16 replica and path L's runs of those configurations
+run it), after path K in the full run:
+
+55. (M1) 50 iterations at dims 8, 64, 100, 128 and 256, bf16 and f16
+    replicas, group-shared and per-vertex negatives: each iteration the
+    trainer's fused iteration against the separate passes composed from
+    the kernel wrappers (``separate_iteration``) and against itself
+    again, on the same X, draws and step: ``-bs 1`` the same bits; the
+    group-shared repulsion (its pair scalar summed in the replica's row
+    class, not X's) within the sound runs' ``upd_err`` of 5.6e-6
+    (``PERF.md`` §9.2); the same bits run to run; its launches an
+    iteration (a second over the hub's owner rows);
+56. (M2) at dim 128 on the bench graph and at 1,048,576 vertices, both
+    sample modes: the fused launch queued beside the edge launch and the
+    repulsion's launches it replaces, and the fused iteration against
+    ``separate_iteration`` in turns.
+
 ``python3 chip_smoke.py --path F`` builds the kernels and runs path F
 alone (a check of the multi-card schedules on a host with several cards,
 where F4 captures every multi-rank runner);
 ``--path G`` runs path G alone, ``--path H`` path H, ``--path I`` path I,
-``--path J`` path J, ``--path K`` path K, ``--path L`` path L.
+``--path J`` path J, ``--path K`` path K, ``--path L`` path L, ``--path
+M`` path M.
 
 The quality margins are half of what the JAX package reaches on the CPU
 with the same graph, configuration and iteration count
@@ -585,6 +608,21 @@ J_DIMS = (2, 8, 16, 24, 32, 64, 100, 128, 256, 512, 1000, 1024)
 J_DTYPES = ((torch.float32, torch.bfloat16), (torch.float32, torch.float32),
             (torch.bfloat16, torch.bfloat16))
 J_FAULT_DIMS = (100, 128)
+# J3-J5's f32 X gathers from X itself: beside a 2-byte replica the trainer
+# runs the fused pass (ell_edge_apply, path M), and no grouped launch
+J_CONFIG = dataclasses.replace(BENCH_CONFIG, gather_dtype=None)
+# path M, the fused pass (ell_edge_apply): M_ITERS iterations of the
+# trainer's fused iteration against the separate passes composed from the
+# kernel wrappers, from the same X each iteration, at these dims and
+# replicas, both sample modes.  Per-vertex negatives (-bs 1) sum their
+# samples in the same row class and order: the same bits.  Group-shared
+# negatives sum each sample's pair scalar over the replica's row class
+# (grouped_rep_force: X's), another lane order: held to the sound runs'
+# upd_err, 5.6e-6 (PERF.md §9.2), and the same bits from run to run.
+M_ITERS = 50
+M_DIMS = (8, 64, 100, 128, 256)
+M_GATHERS = (torch.bfloat16, torch.float16)
+M_UPD_ERR = 5.6e-6
 # path L, run_span and train() as a CUDA graph: L_ITERS iterations of each
 # configuration against the eager loop from the same seed, the same run in
 # spans, bit for bit, and two eager runs against each other, in torch's
@@ -656,6 +694,9 @@ REP_REPLACES = "force2vec_tpu/ops/pallas_force.py:103"
 SAMPLE_REPLACES = "force2vec_tpu/ops/pallas_force.py:264"
 # the split-dim kernels: the JAX package's tp sync step runs in jnp ops
 # (Pallas off at tp > 1, force2vec_tpu/train/sync.py:269)
+APPLY_SOURCE = "force2vec_tpu_torch/ops/csrc/ell_edge_apply.cu"
+# the JAX iteration's x + (upd + repulsion), with the two kernels before it
+APPLY_REPLACES = "force2vec_tpu/train/sync.py:668"
 TP_SOURCE = "force2vec_tpu_torch/ops/csrc/tp_pair_force.cu"
 TP_REPLACES = "force2vec_tpu/train/sync.py:269"
 PROBES = {  # kernel: (source, TPU function it replaces)
@@ -670,7 +711,8 @@ PROBES = {  # kernel: (source, TPU function it replaces)
 }
 # every __global__ function in ops/csrc, each of which must show in the
 # ptxas report
-CUDA_KERNELS = ("ell_edge_force_kernel", "grouped_rep_force_kernel",
+CUDA_KERNELS = ("ell_edge_force_kernel", "ell_edge_apply_kernel",
+                "grouped_rep_force_kernel",
                 "ell_sample_force_kernel", "take_sum_kernel",
                 "tile_force_tc_kernel", "resident_gather_kernel",
                 "read_sum_partial_kernel", "read_sum_final_kernel",
@@ -679,7 +721,8 @@ CUDA_KERNELS = ("ell_edge_force_kernel", "grouped_rep_force_kernel",
 # tdist); they, every other instance of the three force kernels and the
 # split-dim pair (every row class, exact and table sigma) and the ring
 # kernels' instances must spill nothing
-FORCE_KERNELS = ("ell_edge_force_kernel<", "ell_sample_force_kernel<",
+FORCE_KERNELS = ("ell_edge_force_kernel<", "ell_edge_apply_kernel<",
+                 "ell_sample_force_kernel<",
                  "grouped_rep_force_kernel<", "tp_pair_partial_kernel<",
                  "tp_pair_force_kernel<")
 # (replica, X, lanes a row, pieces a lane, the row fills its class, model;
@@ -696,7 +739,9 @@ MAIN_INSTANCES = ("ell_edge_force_kernel<bf16, f32, 16, 1, 1, 0>",
                   "ell_sample_force_kernel<f16, f16, 16, 1, 1, 0>",
                   "grouped_rep_force_kernel<f16, 16, 1, 1, 0>",
                   "ell_edge_force_kernel<f16, f32, 16, 1, 1, 0>",
-                  "ell_sample_force_kernel<f16, f32, 16, 1, 1, 0>")
+                  "ell_sample_force_kernel<f16, f32, 16, 1, 1, 0>",
+                  "ell_edge_apply_kernel<bf16, f32, 16, 1, 1, 0, 0>",
+                  "ell_edge_apply_kernel<f16, f32, 16, 1, 1, 0, 0>")
 RING_INSTANCES = ("take_sum_kernel<bf16>", "take_sum_kernel<f32>",
                   "tile_force_tc_kernel<bf16>", "tile_force_tc_kernel<f32>")
 # take_sum's ring depths (stages per block) timed
@@ -1173,6 +1218,17 @@ def iteration_phase(fv, x0, card, negs, walks=None, adds=None):
     return k_ms, p_ms, q_ms
 
 
+def sync_counts(fv, iters, separate) -> dict:
+    """The launch counts ``iters`` iterations of the sync trainer ``fv``
+    make: ``separate`` where it runs the separate passes, else its fused
+    pass's (``fv.fused_apply``): an ``ell_edge_apply`` launch an
+    iteration, a second over the hub's owner rows where the layout has a
+    hub, and no other force kernel."""
+    if not fv.fused_apply:
+        return separate
+    return {"ell_edge_apply": iters * (2 if fv._hub is not None else 1)}
+
+
 def train_phase(fv, expect, card):
     """``train()`` for TRAIN_ITERS iterations with the launch counts set to
     0 just before; checks the counts equal ``expect`` (the probe kernels
@@ -1250,7 +1306,8 @@ def main_path(graph, dev, card):
     ng = -(-lay.n_pad // BENCH_CONFIG.batch_size)
     negs = np.random.default_rng(7).integers(
         0, graph.n - 1, size=(ng, BENCH_CONFIG.ns)).astype(np.int32)
-    # none: the repulsion launch applies X += update + repulsion
+    # none: the fused launch (or the repulsion launch) applies X +=
+    # update + repulsion
     iter_ms, iter_plain_ms, iter_q_ms = iteration_phase(fv, x0, card, negs,
                                                         adds=0)
     updates = graph.nnz + graph.n * BENCH_CONFIG.ns  # bench.py:158-161
@@ -1259,9 +1316,9 @@ def main_path(graph, dev, card):
     say(f"edge_force_updates_per_s kernels={updates / iter_ms / 1e3:.2f} M "
         f"plain={updates / iter_plain_ms / 1e3:.2f} M [{card}]")
 
-    emb, counts = train_phase(fv, {
+    emb, counts = train_phase(fv, sync_counts(fv, TRAIN_ITERS, {
         "ell_edge_force": TRAIN_ITERS, "grouped_rep_force": TRAIN_ITERS,
-        "ell_sample_force": 0}, card)
+        "ell_sample_force": 0}), card)
     distance_gap_check(graph, emb, QUALITY_MARGIN, "main path")
     return edge, rep, counts, len(fv.device_buckets), iter_q_ms
 
@@ -1334,13 +1391,15 @@ def per_vertex_path(graph, dev, card):
 
     negs = np.random.default_rng(7).integers(
         0, graph.n - 1, size=(n_pad, ns)).astype(np.int32)
-    # X += update: the repulsion is added in the kernel
-    iter_ms, iter_plain_ms, _ = iteration_phase(fv, x0, card, negs, adds=1)
+    # none in the fused pass; else X += update (the repulsion is added
+    # into the update in the kernel)
+    iter_ms, iter_plain_ms, _ = iteration_phase(
+        fv, x0, card, negs, adds=0 if fv.fused_apply else 1)
     say(f"per-vertex ms_per_iteration kernels={iter_ms:.4f} "
         f"plain={iter_plain_ms:.4f} (CUDA events) [{card}]")
-    emb, counts = train_phase(fv, {
+    emb, counts = train_phase(fv, sync_counts(fv, TRAIN_ITERS, {
         "ell_edge_force": TRAIN_ITERS, "grouped_rep_force": 0,
-        "ell_sample_force": TRAIN_ITERS}, card)
+        "ell_sample_force": TRAIN_ITERS}), card)
     distance_gap_check(graph, emb, PV_QUALITY_MARGIN, "-bs 1")
     return dict(max_abs_err=err, ms=km, queued_ms=qm, plain_ms=pm,
                 bound_ms=b_ms, bound_by=by), counts
@@ -1772,9 +1831,9 @@ def file_path(graph, dev, card, tmp):
 
     fv = SyncForce2Vec(loaded, BENCH_CONFIG, MIN_WIDTH, HUB_WIDTH,
                        device=dev)
-    emb, counts = train_phase(fv, {
+    emb, counts = train_phase(fv, sync_counts(fv, TRAIN_ITERS, {
         "ell_edge_force": TRAIN_ITERS, "grouped_rep_force": TRAIN_ITERS,
-        "ell_sample_force": 0}, card)
+        "ell_sample_force": 0}), card)
     distance_gap_check(loaded, emb, QUALITY_MARGIN, "file path")
 
     embd = os.path.join(tmp, "bench.embd")
@@ -2211,7 +2270,7 @@ def sync_quality_phase(graph, dev, card):
     fv = SyncForce2Vec(graph, dataclasses.replace(BENCH_CONFIG,
                                                   model="sigmoid"),
                        MIN_WIDTH, HUB_WIDTH, device=dev)
-    emb, counts = train_phase(fv, expect, card)
+    emb, counts = train_phase(fv, sync_counts(fv, TRAIN_ITERS, expect), card)
     add_counts(total, counts)
     q = quality(graph, emb)
     gap = q["dot_edge"] - q["dot_rand"]
@@ -2224,7 +2283,7 @@ def sync_quality_phase(graph, dev, card):
 
     fv = SyncForce2Vec(graph, dataclasses.replace(BENCH_CONFIG, model="fr"),
                        MIN_WIDTH, HUB_WIDTH, device=dev)
-    emb, counts = train_phase(fv, expect, card)
+    emb, counts = train_phase(fv, sync_counts(fv, TRAIN_ITERS, expect), card)
     add_counts(total, counts)
     q = quality(graph, emb)
     gap = q["d_rand"] - q["d_edge"]
@@ -3584,10 +3643,10 @@ def width_train_phase(graph, dev, card):
         cfg = dataclasses.replace(BENCH_CONFIG, **over)
         fv = SyncForce2Vec(graph, cfg, MIN_WIDTH, HUB_WIDTH, device=dev)
         pv = cfg.per_vertex_samples
-        emb, counts = train_phase(fv, {
+        emb, counts = train_phase(fv, sync_counts(fv, TRAIN_ITERS, {
             "ell_edge_force": TRAIN_ITERS,
             "grouped_rep_force": 0 if pv else TRAIN_ITERS,
-            "ell_sample_force": TRAIN_ITERS if pv else 0}, card)
+            "ell_sample_force": TRAIN_ITERS if pv else 0}), card)
         add_counts(total, counts)
         q = quality(graph, emb)
         gap = (q["dot_edge"] - q["dot_rand"] if stat == "dot"
@@ -4521,8 +4580,9 @@ def x_f16_replica_phase(graph, dev, card, x0, negs_t):
                                     "adds")
     check(bool(torch.isfinite(a).all()) and e < ITER_TOL,
           "the f16-replica iteration differs from its plain version")
-    emb, counts = train_phase(fv, {"ell_edge_force": TRAIN_ITERS,
-                                   "grouped_rep_force": TRAIN_ITERS}, card)
+    emb, counts = train_phase(fv, sync_counts(fv, TRAIN_ITERS, {
+        "ell_edge_force": TRAIN_ITERS, "grouped_rep_force": TRAIN_ITERS}),
+        card)
     distance_gap_check(graph, emb, 0.5 * JAX_TDIST_G_F16_GAP,
                        f"f32 X, f16 replica (JAX {JAX_TDIST_G_F16_GAP:.4f})")
     return counts
@@ -4960,7 +5020,7 @@ def rep_modes_path(graph, dev, card):
         device=dev)
     rw_cfg = dataclasses.replace(BENCH_CONFIG, model="rwalk")
     for what, cfg, mode in (
-            ("main f32 X", BENCH_CONFIG, "apply"),
+            ("main f32 X", J_CONFIG, "apply"),
             ("main bf16 X", I_CONFIG, "apply"),
             ("rwalk", rw_cfg, "apply"),
             ("linlog", dataclasses.replace(BENCH_CONFIG, model="linlog"),
@@ -4980,7 +5040,7 @@ def rep_modes_path(graph, dev, card):
     t0 = time.perf_counter()
     counts = {}
     for what, cfg, margin, stat in (
-            ("main f32 X", BENCH_CONFIG, QUALITY_MARGIN, "dist"),
+            ("main f32 X", J_CONFIG, QUALITY_MARGIN, "dist"),
             ("main bf16 X", I_CONFIG, 0.5 * JAX_TDIST_X_BF16_GAP, "dist"),
             ("rwalk", rw_cfg, RWALK_DOT_MARGIN, "dot")):
         run = SyncForce2Vec(graph, cfg, MIN_WIDTH, HUB_WIDTH, device=dev)
@@ -5030,7 +5090,7 @@ def rep_modes_path(graph, dev, card):
                 f"[{card}]")
     # main's iteration with the sequence before the modes (the store
     # launch, then the add_s: composed_rep) and with apply, queued, in turns
-    for what, cfg in (("f32 X", BENCH_CONFIG), ("bf16 X", I_CONFIG)):
+    for what, cfg in (("f32 X", J_CONFIG), ("bf16 X", I_CONFIG)):
         run = SyncForce2Vec(graph, cfg, MIN_WIDTH, HUB_WIDTH, device=dev)
         x = run.init_embedding(seed=1)
         times = {"store": [], "apply": []}
@@ -5044,6 +5104,215 @@ def rep_modes_path(graph, dev, card):
             f"{times['store']}, apply {times['apply']} [{card}]")
     say(f"J5 ({time.perf_counter() - t0:.1f} s)")
     return rec, counts
+
+
+# -- path M: the fused pass ----------------------------------------------------
+
+
+def separate_iteration(fv, x, negs, step):
+    """The separate passes' iteration of the sync trainer ``fv`` on X in
+    place, composed from the kernel wrappers: the replica, the edge
+    launch over ``edge_table``, the hub's ordered owner sums, then the
+    grouped repulsion's ``apply`` (a gather of the groups' samples first)
+    or, with per-vertex negatives, ``ell_sample_force`` adding into the
+    update and ``X += update``."""
+    lay, hub, model = fv.layout, fv._hub, fv.model
+    xg = x.to(fv._gdt)
+    out = fk.ell_edge_force_table(model, x, xg, fv.edge_table, fv.inv_deg,
+                                  step)
+    upd = out[: lay.n_pad]
+    if hub is not None:
+        hub_owner_sum(upd[hub.start: lay.n],
+                      out[lay.n_pad: lay.n_pad + hub.n_virtual],
+                      hub.owner_off)
+    if fv.config.per_vertex_samples:
+        fk.ell_sample_force(model, x, xg, negs, fv._ns_deg, fv._all_rows,
+                            step, out=upd, accumulate=True)
+        return x.add_(upd)
+    return fk.grouped_rep_force(model, fv.config.batch_size, x,
+                                xg[negs.long()], step, mode="apply",
+                                upd=upd)
+
+
+def m_iterations(fv, what, errs) -> dict:
+    """M1: M_ITERS iterations of ``fv``'s fused iteration, each from the
+    fused run's X against ``separate_iteration`` and against itself again,
+    on the same X, draws and step: the same bits, or for group-shared
+    negatives the update within M_UPD_ERR of the separate passes' and the
+    same bits again; the fused launches each iteration makes."""
+    dev = fv.device
+    x = fv.init_embedding(seed=1)
+    gen = torch.Generator(dev)
+    same = again = True
+    worst = 0.0
+    reset_counts()
+    for it in range(M_ITERS):
+        gen.manual_seed(iteration_seed(1, it))
+        negs, _ = fv._draw(gen)
+        step = fv._step(it)
+        sep, fused, rerun = x.clone(), x.clone(), x.clone()
+        separate_iteration(fv, sep, negs, step)
+        before = fk.launch_counts["ell_edge_apply"]
+        fv.run_iteration(fused, negs, step=step)
+        launches = fk.launch_counts["ell_edge_apply"] - before
+        fv.run_iteration(rerun, negs, step=step)
+        same &= torch.equal(fused, sep)
+        again &= torch.equal(fused, rerun)
+        d_sep = sep - x
+        worst = max(worst, float(torch.linalg.norm(fused - sep)
+                                 / torch.linalg.norm(d_sep)))
+        x = fused
+    pv = fv.config.per_vertex_samples
+    want = 2 if fv._hub is not None else 1
+    rec = dict(same_bits=same, run_to_run=again, upd_err=worst,
+               launches_per_iteration=launches)
+    say(f"M1 {what}: {M_ITERS} iterations, fused vs separate passes "
+        f"{'the same bits' if same else f'upd_err {worst:.3e}'}, fused run "
+        f"to run {'the same bits' if again else 'DIFFERENT'}, "
+        f"{launches} fused launches an iteration; X finite "
+        f"{bool(torch.isfinite(x).all())}")
+    if pv and not same:
+        errs.append(f"{what}: -bs 1 fused differs from the separate passes "
+                    f"(upd_err {worst:.3e})")
+    if not pv and worst > M_UPD_ERR:
+        errs.append(f"{what}: upd_err {worst:.3e} > {M_UPD_ERR}")
+    if not again:
+        errs.append(f"{what}: two fused runs differ")
+    if launches != want:
+        errs.append(f"{what}: {launches} fused launches, not {want}")
+    if not bool(torch.isfinite(x).all()):
+        errs.append(f"{what}: X is not finite")
+    return rec
+
+
+def apply_work(fv, x, xg, negs):
+    """(bytes, operations) that the fused main launch (``fv.apply_table``)
+    must move and compute: ``ell_work``'s count of its entries (the x_i
+    rows read, X's applied rows and the hub's partial rows written once,
+    the replica rows the slots gather, ids, deg, xi_row, invd), with the
+    sample rows no slot gathers and the draws' ids read once; its edge
+    terms, the applied rows' ns sample terms and their two adds."""
+    table, apply = fv.apply_table
+    parts = [p[:3] for p in table.parts()]
+    nbytes, terms = ell_work(parts, x, xg, True)
+    dim = x.shape[1]
+    real = torch.cat([idx[torch.arange(idx.shape[1], device=idx.device)
+                          [None, :] < deg[:, None]] for idx, deg, _ in parts])
+    slots = real.unique()
+    extra = torch.cat([slots, negs.unique()]).unique().numel() - slots.numel()
+    nbytes += extra * dim * xg.element_size() + negs.numel() * 4
+    applied = fk.applied_rows(table, apply).numel()
+    flops = (terms * term_flops(fv.model, "edge", dim)
+             + applied * negs.shape[1] * term_flops(fv.model, "sample", dim)
+             + applied * 2 * dim)
+    return nbytes, flops
+
+
+def m_timing(fv, what, card) -> dict:
+    """M2: the fused main launch against its plain version on copies of
+    one X (max |err| over X and the hub's partial rows), timed back to
+    back and queued with its least time (``apply_work``); then, queued,
+    warm, beside the launches it replaces: the edge launch and the
+    repulsion's (grouped ``apply`` of gathered samples, or
+    ``ell_sample_force`` adding and ``X += update``), and the whole fused
+    iteration against ``separate_iteration``."""
+    x0 = fv.init_embedding(seed=1)
+    gen = torch.Generator(fv.device).manual_seed(3)
+    negs, _ = fv._draw(gen)
+    step, model, pv = fv.lr, fv.model, fv.config.per_vertex_samples
+    xg = x0.to(fv._gdt)
+    group = 1 if pv else fv.config.batch_size
+    rest = (xg, *fv.apply_table, fv.inv_deg, negs, group, step)
+    xk, xp = x0.clone(), x0.clone()
+    got = fk.ell_edge_apply(model, xk, *rest)
+    want = fk.ell_edge_apply_plain(model, xp, *rest)
+    err = max(max_err(xk, xp), max_err(got, want) if got is not None else 0)
+    check(err <= EDGE_TOL + REP_TOL, f"ell_edge_apply {what}: max |err| "
+                                     f"{err:.3e} > {EDGE_TOL + REP_TOL}")
+    x = x0.clone()
+    res = {"max_abs_err": err}
+    res["ms"] = cuda_ms(lambda: fk.ell_edge_apply(model, x, *rest), reps=20)
+    res["fused"] = queued_device_ms(
+        lambda: fk.ell_edge_apply(model, x, *rest), reps=20)
+    res["plain_ms"] = cuda_ms(
+        lambda: fk.ell_edge_apply_plain(model, x, *rest), reps=3)
+    nbytes, flops = apply_work(fv, x0, xg, negs)
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops)
+    res["bytes"] = nbytes
+    say(f"M2 {what}: ell_edge_apply max_abs_err={err:.3e} kernel_ms="
+        f"{res['ms']:.4f} queued={res['fused']:.4f} plain_ms="
+        f"{res['plain_ms']:.4f} bound_ms={res['bound_ms']:.4f} "
+        f"({res['bound_by']}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} "
+        f"GFLOP) [{card}]")
+    x.copy_(x0)
+    out = fk.ell_edge_force_table(model, x, xg, fv.edge_table, fv.inv_deg,
+                                  step)
+    upd = out[: fv.layout.n_pad]
+    res["edge"] = queued_device_ms(lambda: fk.ell_edge_force_table(
+        model, x, xg, fv.edge_table, fv.inv_deg, step, out=out), reps=20)
+    if pv:
+        res["repulsion"] = queued_device_ms(lambda: x.add_(
+            fk.ell_sample_force(model, x, xg, negs, fv._ns_deg,
+                                fv._all_rows, step, out=upd,
+                                accumulate=True)), reps=20)
+    else:
+        sg = xg[negs.long()]
+        res["repulsion"] = queued_device_ms(lambda: fk.grouped_rep_force(
+            model, group, x, sg, step, mode="apply", upd=upd), reps=20)
+    its = {"fused": [], "separate": []}
+    for m in ("separate", "fused", "fused", "separate"):
+        fn = ((lambda: fv.run_iteration(x, negs, step=step)) if m == "fused"
+              else (lambda: separate_iteration(fv, x, negs, step)))
+        its[m].append(queued_device_ms(fn, reps=10))
+    res["iteration"] = its
+    say(f"M2 {what}, queued ms: fused launch {res['fused']:.4f} against "
+        f"edge {res['edge']:.4f} + repulsion "
+        f"{'(sample, X += update)' if pv else '(apply)'} "
+        f"{res['repulsion']:.4f} = {res['edge'] + res['repulsion']:.4f}; "
+        f"iteration fused {its['fused']} separate {its['separate']} [{card}]")
+    return res
+
+
+def fused_path(graph, dev, card):
+    """Path M: the fused pass (``ell_edge_apply``) at every dim of M_DIMS,
+    both replicas, both sample modes, against the separate passes (M1),
+    then timed beside them (M2) at dim 128 on the bench graph and on the
+    1,048,576-vertex graph (its replica past the L2).  Returns (record,
+    launch counts)."""
+    errs, rec, total = [], {"M1": {}, "M2": {}}, {}
+    for dim in M_DIMS:
+        for gdt in M_GATHERS:
+            for pv in (False, True):
+                cfg = dataclasses.replace(
+                    BENCH_CONFIG, dim=dim, gather_dtype=str(gdt)[6:],
+                    per_vertex_samples=pv)
+                fv = SyncForce2Vec(graph, cfg, MIN_WIDTH, HUB_WIDTH,
+                                   device=dev)
+                check(fv.fused_apply, f"path M: dim {dim} {gdt} does not "
+                                      "engage the fused pass")
+                what = (f"dim {dim} ({row_class(dim, gdt)}) "
+                        f"{str(gdt)[6:]} replica "
+                        f"{'-bs 1' if pv else 'group-shared'}")
+                rec["M1"][what] = m_iterations(fv, what, errs)
+                add_counts(total, read_counts())
+                del fv
+    for name, g in (("bench", graph), ("n 1,048,576", big_graph())):
+        for pv in (False, True):
+            cfg = dataclasses.replace(BENCH_CONFIG, per_vertex_samples=pv)
+            fv = SyncForce2Vec(g, cfg, MIN_WIDTH, HUB_WIDTH, device=dev)
+            what = f"{name} graph, dim 128, {'-bs 1' if pv else 'group'}"
+            rec["M2"][what] = m_timing(fv, what, card)
+            del fv
+    for e in errs:
+        say(f"M FAILED: {e}")
+    check(not errs, f"path M: {len(errs)} failures: {errs}")
+    # the kernels line's figures: the main path's shapes (the bench
+    # graph, dim 128, group-shared negatives)
+    main = rec["M2"]["bench graph, dim 128, group"]
+    rec.update(max_abs_err=main["max_abs_err"], ms=main["ms"],
+               queued_ms=main["fused"], plain_ms=main["plain_ms"],
+               bound_ms=main["bound_ms"], bound_by=main["bound_by"])
+    return rec, total
 
 
 # -- path L: run_span and train() as a CUDA graph --------------------------------
@@ -5409,6 +5678,15 @@ def main() -> int:
                        f"{missing}")
 
     graph = synth_powerlaw_graph()
+    if sys.argv[1:] == ["--path", "M"]:
+        t0 = time.perf_counter()
+        rec, counts = fused_path(graph, dev, card)
+        say(f"path M (the fused pass): {time.perf_counter() - t0:.1f} s")
+        say(json.dumps({"path_M_launches": counts, "fused": rec}))
+        say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if sys.argv[1:] == ["--path", "L"]:
         t0 = time.perf_counter()
         rec, counts = graph_path(graph, dev, card)
@@ -5521,6 +5799,9 @@ def main() -> int:
     say(f"path K (f16 X and the f16 replica): "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    fused, counts_fused = fused_path(graph, dev, card)
+    say(f"path M (the fused pass): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     rep["modes"], counts_modes = path_j_process()
     say(f"path J (repulsion modes, --path J): "
         f"{time.perf_counter() - t0:.1f} s")
@@ -5543,7 +5824,8 @@ def main() -> int:
              "vertex": counts_vertex, "dp": counts_dp, "tp": counts_tp,
              "widths": counts_widths, "split": counts_split,
              "x_bf16": counts_bf16, "x_f16": counts_f16,
-             "rep_modes": counts_modes, "graph": counts_graph}
+             "rep_modes": counts_modes, "graph": counts_graph,
+             "fused": counts_fused}
     for name, m in (("ell_edge_force", edge), ("grouped_rep_force", rep),
                     ("ell_sample_force", sample)):
         (m["queued_ms_dim64"], m["bound_ms_dim64"],
@@ -5567,6 +5849,7 @@ def main() -> int:
         entry("ell_edge_force", EDGE_SOURCE, EDGE_REPLACES, edge),
         entry("grouped_rep_force", REP_SOURCE, REP_REPLACES, rep),
         entry("ell_sample_force", SAMPLE_SOURCE, SAMPLE_REPLACES, sample),
+        entry("ell_edge_apply", APPLY_SOURCE, APPLY_REPLACES, fused),
     ] + [entry(name, *PROBES[name], m) for name, m in measured.items()]
       + [entry(name, TP_SOURCE, TP_REPLACES, m)
          for name, m in tp_rec.items()]}))

@@ -37,10 +37,12 @@ NVCC_FLAGS = (
 # and once with neither for its C entry point, so that no nvcc job holds
 # more than one pair's instances: one nvcc a source takes twice the wall
 # time (scripts/time_kernel_build.py).  grouped_rep_force.cu's sample type
-# is a runtime code, so it is compiled once per X type.
+# is a runtime code, so it is compiled once per X type.  ell_edge_apply.cu
+# takes only the pairs of an f32 X beside a 2-byte replica (apply_pairs).
 _PAIR_SOURCES = ("ell_edge_force.cu", "ell_sample_force.cu",
                  "tp_pair_force.cu")
 _X_SOURCES = ("grouped_rep_force.cu",)
+_APPLY_SOURCES = ("ell_edge_apply.cu",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -60,6 +62,12 @@ _SIGNATURES = {
     # stream
     "f2v_grouped_rep_force": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I,
                               _I, _I, _I, _I, _P),
+    # x, xg, xg_dtype, x_dtype (a pair of apply_pairs), nbr, deg, xi_row,
+    # invd, sm_table, step (a device f32 scalar), out, negs, upd,
+    # apply_mask, group, ns, table (host [n_entries, 5] int64), n_entries,
+    # dim, model, stream
+    "f2v_ell_edge_apply": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, ctypes.c_uint64, _I, _I, _P, _I, _I, _I, _P),
     # x, xg, xg_dtype, x_dtype (x and out in x's), idx, deg, xi_row,
     # sm_table, step (a device f32 scalar), out, accumulate, rows, width,
     # dim, model, stream
@@ -97,14 +105,27 @@ def sources() -> list:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+def _pairs(macro: str) -> tuple:
+    """The (gather, X) DType code pairs that csrc/common.cuh's ``macro``
+    lists."""
+    text = (CSRC_DIR / "common.cuh").read_text()
+    line = re.search(rf"^#define {macro}\(PAIR\) (.*)$", text, re.M)
+    return tuple((int(g), int(x))
+                 for g, x in re.findall(r"PAIR\((\d+), (\d+)\)", line[1]))
+
+
 @functools.lru_cache(maxsize=None)
 def dtype_pairs() -> tuple:
     """The (gather, X) DType code pairs the force kernels take (0 f32,
     1 bf16, 2 f16): csrc/common.cuh::F2V_DTYPE_PAIRS, the one list."""
-    text = (CSRC_DIR / "common.cuh").read_text()
-    line = re.search(r"^#define F2V_DTYPE_PAIRS\(PAIR\) (.*)$", text, re.M)
-    return tuple((int(g), int(x))
-                 for g, x in re.findall(r"PAIR\((\d+), (\d+)\)", line[1]))
+    return _pairs("F2V_DTYPE_PAIRS")
+
+
+@functools.lru_cache(maxsize=None)
+def apply_pairs() -> tuple:
+    """The pairs the fused launch (``ell_edge_apply``) takes: an f32 X
+    beside a bf16 or f16 replica, csrc/common.cuh::F2V_APPLY_PAIRS."""
+    return _pairs("F2V_APPLY_PAIRS")
 
 
 def splits(name: str) -> tuple:
@@ -115,6 +136,9 @@ def splits(name: str) -> tuple:
         return tuple((f"-DF2V_GATHER={g}", f"-DF2V_X={x}") for g, x in pairs)
     if name in _X_SOURCES:
         return tuple((f"-DF2V_X={x}",) for x in sorted({x for _, x in pairs}))
+    if name in _APPLY_SOURCES:
+        return tuple((f"-DF2V_GATHER={g}", f"-DF2V_X={x}")
+                     for g, x in apply_pairs())
     return ()
 
 

@@ -1,6 +1,7 @@
 // Helpers shared by the force kernels: row loads and stores, lane-group
 // sums, the force models, and the ELL gather engine (ell_block) that
-// ell_edge_force.cu, ell_sample_force.cu and tp_pair_force.cu all run.
+// ell_edge_force.cu, ell_sample_force.cu, tp_pair_force.cu and
+// ell_edge_apply.cu all run.
 //
 // A group of G lanes holds one embedding row of D elements, D a runtime
 // argument, a multiple of 8 up to kMaxDim (the trainers hold X at the dim
@@ -98,6 +99,13 @@ struct Types {
 // nvcc job holds more than one pair's instances, and the wrappers
 // (force_kernels._check_x) refuse any other pair by name.
 #define F2V_DTYPE_PAIRS(PAIR) PAIR(0, 0) PAIR(1, 0) PAIR(2, 0) PAIR(1, 1) PAIR(2, 2)
+
+// The pairs of the fused attraction-repulsion-apply launch
+// (ell_edge_apply.cu): an f32 X beside a bf16 or f16 replica, the one case
+// in which the replica is a buffer of its own, so that the launch may
+// write X while its rows gather from the replica.  The build
+// (_build.splits) compiles ell_edge_apply.cu for these pairs alone.
+#define F2V_APPLY_PAIRS(PAIR) PAIR(1, 0) PAIR(2, 0)
 
 // Calls fn(Types<T, TX>{}) for a gather table of code `xg` beside an X of
 // code `x`, a pair of F2V_DTYPE_PAIRS; cudaErrorInvalidValue for any other.
@@ -507,63 +515,22 @@ __device__ __forceinline__ float piece_f32(const uint4& q, int v) {
   }
 }
 
-// The body of the ELL kernels: this block's entry, one row of RC::D
-// (kFull) or p.dim elements per group of RC::G lanes, each pair's scalar
-// as Mode says.
-template <typename T, typename TX, class RC, class F, int Mode = kCompute>
-__device__ __forceinline__ void ell_block(const EllArgs<T, TX>& p) {
+// ell_block's slot loop: force F of each of one row's slots [0, n) (ids
+// at `ids`, the row's first slot s0 of entry e's table), summed into acc
+// in slot order, each pair's scalar as Mode says, U rows in flight a
+// group (RowClass::U unless a caller holds fewer).  The warp's lanes run
+// its longest row's n_max slots together (rounds_end: kStore covers the
+// whole width).  A lane's pieces past the row's end are not loaded and
+// count as 0.
+template <typename T, class RC, class F, int Mode, int U = RC::U, class A>
+__device__ __forceinline__ void ell_rounds(
+    const A& p, const int32_t* ids, int64_t s0, int n, int n_max,
+    int rounds_end, bool live, const EllEntry& e, int gl, int64_t dim,
+    const bool (&has)[RC::P], const float (&xi)[RC::P][RC::E], float invd_i,
+    float step, float (&acc)[RC::P][RC::E]) {
   constexpr int G = RC::G, P = RC::P, E = RC::E;
-  constexpr int U = RC::U;
+  static_assert(G % U == 0, "a group's ids must cover whole rounds");
   constexpr bool kStores = Mode == kStore;
-  constexpr int NG = 32 / G;  // rows per warp
-  const EllEntry& e = ell_entry(p);
-  const int lane = threadIdx.x & 31;
-  const int gl = lane % G;
-  // 32-bit row numbers: ell_plan keeps rows + the last warp's below 2^31
-  const int warp_row =
-      ((int(blockIdx.x) - e.block_begin) * kEllWarps + (threadIdx.x >> 5)) *
-      NG;
-  if (warp_row >= e.rows) return;  // whole warp leaves together
-  const int r = warp_row + lane / G;
-  const bool live = r < e.rows;
-  const int n = live ? p.deg[e.row_begin + r] : 0;
-  const int64_t dim = RC::kFull ? RC::D : p.dim;
-  bool has[P];  // a lane's piece c is the row's piece c·G + gl
-#pragma unroll
-  for (int c = 0; c < P; ++c) has[c] = RC::kFull || c * G + gl < dim / E;
-  float xi[P][E];
-  float invd_i = 0.0f;
-  const int64_t i = live ? p.xi_row[e.row_begin + r] : 0;
-#pragma unroll
-  for (int c = 0; c < P; ++c) {
-    if (live && has[c]) {
-      load_row<TX, E>(p.x + i * dim + (c * G + gl) * E, xi[c]);
-    } else {
-#pragma unroll
-      for (int v = 0; v < E; ++v) xi[c][v] = 0.0f;
-    }
-  }
-  if (F::kUsesInvd && live) invd_i = to_f32(p.invd[i]);
-  const int64_t s0 = e.nbr_begin + int64_t(r) * e.width;  // the row's slots
-  const int32_t* ids = p.nbr + s0;
-  int n_max = n;  // the warp's loops run to its longest row
-#pragma unroll
-  for (int o = G; o < 32; o <<= 1) {
-    n_max = max(n_max, __shfl_xor_sync(kFullMask, n_max, o));
-  }
-  float acc[P][E];
-#pragma unroll
-  for (int c = 0; c < P; ++c) {
-#pragma unroll
-    for (int v = 0; v < E; ++v) acc[c][v] = 0.0f;
-  }
-
-  // the step: one load a thread, the same word for the whole block
-  float step = 0.0f;
-  if constexpr (!kStores) step = __ldg(p.step);
-
-  // kStore's rounds cover the whole width, the padded slots' 0s included
-  const int rounds_end = kStores ? e.width : n_max;
   for (int i0 = 0; i0 < rounds_end; i0 += G) {
     const int my_j = i0 + gl < n ? ids[i0 + gl] : 0;
     // kLoad: the scalar of this lane's slot; kStore: the one it stores
@@ -637,14 +604,89 @@ __device__ __forceinline__ void ell_block(const EllArgs<T, TX>& p) {
     }
     if (kStores && live && i0 + gl < e.width) p.part[s0 + i0 + gl] = my_a;
   }
-  if (!kStores && live) {
-    TX* o = p.out + (e.out_begin + r) * dim;
+}
+
+// ell_block's epilogue where a kernel sums one force: each row's sum
+// stored in out (or, with p.accumulate, added into it).  Another epilogue
+// (Epi) takes the row over after its slot loop instead:
+//   Epi::finish<T, TX, RC>(p, e, r, live, gl, dim, has, xi, acc)
+// with the entry e, the row r of it (live: a row of the entry), and x_i
+// and the row's f32 sum as a lane holds them (ell_edge_apply.cu: the
+// repulsion and X's update).
+struct StoreSum {};
+
+// The body of the ELL kernels: this block's entry, one row of RC::D
+// (kFull) or p.dim elements per group of RC::G lanes, each pair's scalar
+// as Mode says, then the epilogue Epi.  A is EllArgs<T, TX> or an argument
+// block that extends it.
+template <typename T, typename TX, class RC, class F, int Mode = kCompute,
+          class Epi = StoreSum, class A>
+__device__ __forceinline__ void ell_block(const A& p) {
+  constexpr int G = RC::G, P = RC::P, E = RC::E;
+  constexpr bool kStores = Mode == kStore;
+  constexpr int NG = 32 / G;  // rows per warp
+  const EllEntry& e = ell_entry(p);
+  const int lane = threadIdx.x & 31;
+  const int gl = lane % G;
+  // 32-bit row numbers: ell_plan keeps rows + the last warp's below 2^31
+  const int warp_row =
+      ((int(blockIdx.x) - e.block_begin) * kEllWarps + (threadIdx.x >> 5)) *
+      NG;
+  if (warp_row >= e.rows) return;  // whole warp leaves together
+  const int r = warp_row + lane / G;
+  const bool live = r < e.rows;
+  const int n = live ? p.deg[e.row_begin + r] : 0;
+  const int64_t dim = RC::kFull ? RC::D : p.dim;
+  bool has[P];  // a lane's piece c is the row's piece c·G + gl
 #pragma unroll
-    for (int c = 0; c < P; ++c) {
-      if (has[c]) {
-        store_or_add<TX, E>(o + (c * G + gl) * E, acc[c], p.accumulate);
+  for (int c = 0; c < P; ++c) has[c] = RC::kFull || c * G + gl < dim / E;
+  float xi[P][E];
+  float invd_i = 0.0f;
+  const int64_t i = live ? p.xi_row[e.row_begin + r] : 0;
+#pragma unroll
+  for (int c = 0; c < P; ++c) {
+    if (live && has[c]) {
+      load_row<TX, E>(p.x + i * dim + (c * G + gl) * E, xi[c]);
+    } else {
+#pragma unroll
+      for (int v = 0; v < E; ++v) xi[c][v] = 0.0f;
+    }
+  }
+  if (F::kUsesInvd && live) invd_i = to_f32(p.invd[i]);
+  const int64_t s0 = e.nbr_begin + int64_t(r) * e.width;  // the row's slots
+  const int32_t* ids = p.nbr + s0;
+  int n_max = n;  // the warp's loops run to its longest row
+#pragma unroll
+  for (int o = G; o < 32; o <<= 1) {
+    n_max = max(n_max, __shfl_xor_sync(kFullMask, n_max, o));
+  }
+  float acc[P][E];
+#pragma unroll
+  for (int c = 0; c < P; ++c) {
+#pragma unroll
+    for (int v = 0; v < E; ++v) acc[c][v] = 0.0f;
+  }
+
+  // the step: one load a thread, the same word for the whole block
+  float step = 0.0f;
+  if constexpr (!kStores) step = __ldg(p.step);
+
+  // kStore's rounds cover the whole width, the padded slots' 0s included
+  const int rounds_end = kStores ? e.width : n_max;
+  ell_rounds<T, RC, F, Mode>(p, ids, s0, n, n_max, rounds_end, live, e,
+                             gl, dim, has, xi, invd_i, step, acc);
+  if constexpr (std::is_same_v<Epi, StoreSum>) {
+    if (!kStores && live) {
+      TX* o = p.out + (e.out_begin + r) * dim;
+#pragma unroll
+      for (int c = 0; c < P; ++c) {
+        if (has[c]) {
+          store_or_add<TX, E>(o + (c * G + gl) * E, acc[c], p.accumulate);
+        }
       }
     }
+  } else {
+    Epi::template finish<T, TX, RC>(p, e, r, live, gl, dim, has, xi, acc);
   }
 }
 

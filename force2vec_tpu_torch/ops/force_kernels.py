@@ -14,6 +14,11 @@ The counterpart of ``force2vec_tpu/ops/pallas_force.py``:
 * ``ell_sample_force`` (``csrc/ell_sample_force.cu``): the repulsion from
   per-row negatives (``-bs 1``); it replaces ``ell_force`` with kind
   ``sample``;
+* ``ell_edge_apply`` (``csrc/ell_edge_apply.cu``): the sync iteration's
+  attraction, repulsion and ``X += update`` in one launch over a work
+  table and a flag an entry, which applies or stores (``apply_table``),
+  for an f32 X beside a 2-byte replica; the update never goes through
+  device memory;
 * ``tp_pair_partial`` and ``tp_pair_force`` (``csrc/tp_pair_force.cu``):
   any of those forces with the dim split over tp ranks, in two launches
   around the caller's ``all_reduce`` of the pair scalars; the JAX package
@@ -74,7 +79,8 @@ from force2vec_tpu_torch.ops import _build
 
 launch_counts = {"ell_edge_force": 0, "grouped_rep_force": 0,
                  "ell_sample_force": 0, "tp_pair_partial": 0,
-                 "tp_pair_force": 0, "tp_all_reduce": 0}
+                 "tp_pair_force": 0, "tp_all_reduce": 0,
+                 "ell_edge_apply": 0}
 
 # model ids of csrc/common.cuh's EdgeModel and SampleModel
 _EDGE_MODEL_IDS = {
@@ -684,6 +690,203 @@ def ell_sample_force(model: ForceModel, x, xg, idx, deg, xi_row, step,
             _SAMPLE_MODEL_IDS[model.sample_force], _stream(dev))
     _build.check(lib, "ell_sample_force", err)
     launch_counts["ell_sample_force"] += 1
+    return out
+
+
+# -- attraction, repulsion and the update of X in one launch -------------------
+
+# the models csrc/ell_edge_apply.cu takes: those with an add update and a
+# CSR attraction (their edge model ids), each with its own sample force
+_APPLY_MODELS = {(forces._tdist_coeff, forces._tdist_rep),
+                 (forces._sigmoid_coeff, forces._sigmoid_rep),
+                 (forces._sigmoid_table_coeff, forces._sigmoid_table_rep)}
+
+
+def applies(model: ForceModel) -> bool:
+    """Whether ``ell_edge_apply`` takes ``model``: an ``add`` update, a CSR
+    attraction, and an edge force paired with its own sample force."""
+    return (model.update == "add" and model.attraction == "csr"
+            and (model.edge_coeff, model.sample_force) in _APPLY_MODELS)
+
+
+def applied_rows(table: EdgeWorkTable, apply) -> torch.Tensor:
+    """The X rows (int64, in launch order, repeats kept) that the entries
+    of ``table`` flagged in ``apply`` update."""
+    rows = [p[2].long() for p, a in zip(table.parts(), apply) if a]
+    return (torch.cat(rows) if rows else
+            torch.zeros(0, dtype=torch.long, device=table.deg.device))
+
+
+def apply_table(table: EdgeWorkTable, apply, entries=None,
+                out_rows: Optional[int] = None):
+    """``(table, flags)`` for ``ell_edge_apply``: ``table``'s arrays, its
+    ``entries`` ([E, 5] int64, default ``table``'s: rows of its arrays) and
+    ``out_rows`` rows of output for the storing entries (default
+    ``table``'s), beside ``apply`` as a tuple of bools, one an entry in
+    launch order: True where the entry's rows update X's rows ``xi_row``
+    in place (their output rows index ``upd``, where given), False where
+    they store their sums into the output rows.  Checks, once, that each X
+    row is applied by at most one entry row and that no storing entry
+    reads an applied row's x (the hub's virtual rows read their owners'
+    while the launch writes X)."""
+    entries = np.ascontiguousarray(table.entries if entries is None
+                                   else entries, dtype=np.int64)
+    apply = tuple(bool(a) for a in apply)
+    _require(len(apply) == entries.shape[0], "one apply flag an entry")
+    t = dataclasses.replace(table, entries=entries, partial=True,
+                            out_rows=(table.out_rows if out_rows is None
+                                      else out_rows))
+    parts = t.parts()
+    if any(apply):
+        applied = torch.bincount(applied_rows(t, apply), minlength=t.n_pad)
+        _require(int(applied.max()) <= 1, "an X row applied by two entry rows")
+        for (_, _, xi_row, _), a in zip(parts, apply):
+            _require(a or not bool(applied[xi_row.long()].any()),
+                     "a storing entry reads an X row the launch applies")
+    for (nbr, _, _, ob), a in zip(parts, apply):
+        _require(a or ob + nbr.shape[0] <= t.out_rows,
+                 f"a storing entry writes past the {t.out_rows} output rows")
+    return t, apply
+
+
+def _rep_rows(model: ForceModel, x, xg, negs, group: int, xi_row,
+              step) -> torch.Tensor:
+    """[C, D] in x's dtype: rows ``xi_row``'s repulsion, Σ_s
+    sample_force(x[i], xg[negs[i // group, s]]), in f32 and rounded once:
+    the terms and sums of ``grouped_rep_force_plain`` and
+    ``ell_sample_force_plain``."""
+    rows = xi_row.long()
+    s = xg[negs[rows // group].long()].float()  # [C, ns, D]
+    terms = model.sample_force(x[rows].float()[:, None, :], s, step)
+    return terms.sum(dim=1).to(x.dtype)
+
+
+def _entry_sums(edge, model: ForceModel, x, xg, table: EdgeWorkTable,
+                invd, step) -> torch.Tensor:
+    """[rows of ``table``'s arrays, D]: row r of each entry's attraction
+    sum in row ``row_begin + r``, from ``edge`` (``ell_edge_force_table`` or
+    its plain version) over the entries laid out as one storing table."""
+    entries = table.entries.copy()
+    entries[:, 2] = entries[:, 0]
+    flat = dataclasses.replace(table, entries=entries, partial=True,
+                               out_rows=table.deg.shape[0])
+    out = torch.zeros((flat.out_rows, x.shape[1]), dtype=x.dtype,
+                      device=x.device)
+    return edge(model, x, xg, flat, invd, step, out=out)
+
+
+def _apply_plain(edge, model: ForceModel, x, xg, table: EdgeWorkTable,
+                 apply, invd, negs, group: int, step, out, upd):
+    """``ell_edge_apply_plain``, its attraction sums from ``edge``."""
+    if out is None and table.out_rows:
+        out = torch.empty((table.out_rows, x.shape[1]), dtype=x.dtype,
+                          device=x.device)
+    sums = (None if upd is not None and all(apply) else
+            _entry_sums(edge, model, x, xg, table, invd, step))
+    new = []
+    for (rb, _, ob, c, _), a, (_, _, xi_row, _) in zip(
+            table.entries.tolist(), apply, table.parts()):
+        if not a:
+            out[ob: ob + c] = sums[rb: rb + c]
+            continue
+        att = upd[ob: ob + c] if upd is not None else sums[rb: rb + c]
+        rep = _rep_rows(model, x, xg, negs, group, xi_row, step)
+        rows = xi_row.long()
+        new.append((rows, x[rows] + (att + rep)))
+    for rows, v in new:
+        x[rows] = v
+    return out
+
+
+def ell_edge_apply_plain(model: ForceModel, x, xg, table: EdgeWorkTable,
+                         apply, invd, negs, group: int, step,
+                         out: Optional[torch.Tensor] = None,
+                         upd: Optional[torch.Tensor] = None):
+    """The plain version of ``ell_edge_apply``: each storing entry's
+    ``ell_edge_force_table_plain`` sums into its output rows; each
+    applying entry's attraction (those sums, or ``upd``'s rows),
+    repulsion (``_rep_rows``) and X's rows ``x[i] + (att + rep)``, written
+    after every entry has read X.  Returns ``out``."""
+    return _apply_plain(ell_edge_force_table_plain, model, x, xg, table,
+                        apply, invd, negs, group, step, out, upd)
+
+
+def ell_edge_apply(model: ForceModel, x, xg, table: EdgeWorkTable, apply,
+                   invd, negs, group: int, step,
+                   out: Optional[torch.Tensor] = None,
+                   upd: Optional[torch.Tensor] = None):
+    """The sync iteration's forces and update in one launch, in place.
+
+    For each row r of an entry of ``table`` that ``apply`` flags (both
+    from ``apply_table``), with i = xi_row[r]: att = Σ_{k<deg[r]}
+    edge_force(x[i], xg[nbr[r, k]]) (or ``upd``'s row ``out_begin + r``,
+    where ``upd`` is given), rep = Σ_{s<ns} sample_force(x[i],
+    xg[negs[i // group, s]]), each summed in
+    f32 and rounded to X's dtype, and ``x[i] ← x[i] + (att + rep)``: the
+    bits of ``ell_edge_force`` then ``grouped_rep_force``'s ``apply``, or
+    ``ell_sample_force``'s accumulate then ``x.add_(upd)``.  A storing
+    entry writes its rows' attraction sums into ``out``
+    [table.out_rows, D] (a new tensor if not given).  Returns ``out``
+    (None for a table with no output rows).
+
+    x [table.n_pad, D] f32; xg [table.n_gather, D] bf16 or f16, its
+    replica, a tensor of its own (``_build.apply_pairs``); invd
+    [table.n_pad] f32; negs [groups, ns] int32 rows of xg, row i's set
+    ``i // group`` (group 1: per-vertex negatives, ``[n_pad, ns]``); the
+    model one ``applies`` takes; step a float or a 0-d f32 tensor on x's
+    device.  On the card no row of X is read but by its own row, so X
+    takes the update while the launch runs.
+    """
+    _require(applies(model), f"{model.name} has no fused attraction, "
+                             "repulsion and apply")
+    _check_edge_operands(model, x, xg, invd)
+    dev = x.device
+    _require((_code(xg), _code(x)) in _build.apply_pairs(),
+             f"the fused launch takes an f32 x beside a bf16 or f16 replica, "
+             f"not {x.dtype} beside {xg.dtype}")
+    _require(xg.data_ptr() != x.data_ptr(), "xg must be a replica of its own")
+    _require(x.shape[0] == table.n_pad and xg.shape[0] == table.n_gather,
+             f"x {tuple(x.shape)} and xg {tuple(xg.shape)} != the table's "
+             f"{table.n_pad} and {table.n_gather} rows")
+    _require(len(apply) == table.entries.shape[0],
+             "the table needs an apply flag an entry (apply_table)")
+    _require(table.nbr.device == dev, f"table on {table.nbr.device}, x on "
+                                      f"{dev}")
+    _require(isinstance(group, int) and group > 0, f"bad group {group!r}")
+    _check("negs", negs, (torch.int32,), 2, dev)
+    _require(negs.shape[1] > 0, "negs holds no samples")
+    _require(negs.shape[0] * group >= table.n_pad,
+             f"{negs.shape[0]} sets of {group} rows cover fewer than "
+             f"{table.n_pad}")
+    if table.out_rows:
+        out = _edge_out(out, table.out_rows, x)
+    if upd is not None:
+        _check("upd", upd, (x.dtype,), 2, dev)
+        ends = [ob + rows for (_, _, ob, rows, _), a in
+                zip(table.entries.tolist(), apply) if a]
+        _require(upd.shape[1] == x.shape[1] and max(ends, default=0)
+                 <= upd.shape[0], "upd must hold the applied rows' out rows")
+    if dev.type == "cpu":  # the attraction through the edge launch's wrapper
+        return _apply_plain(ell_edge_force_table, model, x, xg, table, apply,
+                            invd, negs, group, step, out, upd)
+    _require(dev.type == "cuda", f"no kernel for device {dev}")
+    _check_cuda_operands(x.shape[1], x, xg,
+                         *(t for t in (out, upd) if t is not None))
+    mask = sum(1 << k for k, a in enumerate(apply) if a)
+    lib = _build.load_library()
+    step = _step_scalar(step, dev)
+    with torch.cuda.device(dev):
+        err = lib.f2v_ell_edge_apply(
+            x.data_ptr(), xg.data_ptr(), _code(xg), _code(x),
+            table.nbr.data_ptr(), table.deg.data_ptr(),
+            table.xi_row.data_ptr(), invd.data_ptr(),
+            _table_ptr(model.edge_coeff, dev), step.data_ptr(),
+            None if out is None else out.data_ptr(), negs.data_ptr(),
+            None if upd is None else upd.data_ptr(), mask, group,
+            negs.shape[1], table.entries.ctypes.data, table.entries.shape[0],
+            x.shape[1], _EDGE_MODEL_IDS[model.edge_coeff], _stream(dev))
+    _build.check(lib, "ell_edge_apply", err)
+    launch_counts["ell_edge_apply"] += 1
     return out
 
 

@@ -25,8 +25,9 @@ partials are one run, and ``hub_owner_sum`` stores each run's sum, in
 row order, into the owner's row (the JAX package's
 ``jax.ops.segment_sum``).  The runs' offsets are static, built once with
 the layout (``owner_offsets``), so the sum is one ``segment_reduce``
-launch and a copy: given lengths, the operator would make the offsets
-anew at every call (a fill, a scan and a concatenation).
+launch and a copy (none where the sync trainer's fused launch reads the
+sums themselves, ``owner_sums``): given lengths, the operator would make
+the offsets anew at every call (a fill, a scan and a concatenation).
 """
 
 from __future__ import annotations
@@ -70,18 +71,23 @@ def owner_offsets(owners: np.ndarray, deg: np.ndarray,
         own, minlength=n_owners))]).astype(np.int64)
 
 
-def hub_owner_sum(dst: torch.Tensor, src: torch.Tensor,
-                  offsets: torch.Tensor) -> torch.Tensor:
-    """``dst[r] = Σ`` of ``src``'s rows ``[offsets[r], offsets[r + 1])``,
-    added in row order, 0 where the run is empty; stores into ``dst`` in
-    place (each owner row's earlier value is replaced, so the caller's
-    owner rows need not be 0) and returns it.
+def owner_sums(src: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """``[R, D]`` f32: row r the sum of ``src``'s rows ``[offsets[r],
+    offsets[r + 1])``, added in row order, 0 where the run is empty.
 
-    dst ``[R, D]``; src ``[offsets[R], D]``; offsets ``[R + 1]`` int64 on
-    the device, from 0, non-decreasing (``owner_offsets``: not checked,
-    which would read them back).  The sum is taken in f32 and rounded once
-    into ``dst``'s dtype (a bf16 or f16 X)."""
+    src ``[offsets[R], D]``; offsets ``[R + 1]`` int64 on the device, from
+    0, non-decreasing (``owner_offsets``: not checked, which would read
+    them back).  The sum is taken in f32 (a bf16 or f16 ``src`` widened)."""
     if src.dtype != torch.float32:
         src = src.float()
-    return dst.copy_(torch.segment_reduce(src, "sum", offsets=offsets,
-                                          axis=0, unsafe=True))
+    return torch.segment_reduce(src, "sum", offsets=offsets, axis=0,
+                                unsafe=True)
+
+
+def hub_owner_sum(dst: torch.Tensor, src: torch.Tensor,
+                  offsets: torch.Tensor) -> torch.Tensor:
+    """``owner_sums(src, offsets)`` stored into ``dst`` ``[R, D]`` in place,
+    rounded once into its dtype (a bf16 or f16 X); each owner row's earlier
+    value is replaced, so the caller's owner rows need not be 0.  Returns
+    ``dst``."""
+    return dst.copy_(owner_sums(src, offsets))

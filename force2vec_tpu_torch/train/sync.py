@@ -49,6 +49,20 @@ iteration over the degree-sorted ELL layout (graphs/csr.py::SyncLayout):
 4. ``X += update`` (or the energy-normalized update), in place, unless
    the repulsion applied it.
 
+Steps 2 to 4 are one pass (``fused_apply``, decided by the constructor)
+where the launch may write X while it runs: at one rank, with no hot
+table, a CSR model with an ``add`` update (tdist, sigmoid and its table
+σ), and a replica of its own (an f32 X beside a bf16 or f16
+``gather_dtype``).  ``ell_edge_apply`` runs the edge kernel's launch over
+``apply_table`` (``edge_table``'s entries); each row then sums its ns
+samples' repulsion (row i takes negatives ``i // batch_size``, or its own
+with per-vertex negatives) and writes ``X += att + rep`` from registers,
+so the update never goes through device memory.  The hub's virtual rows
+store their partial sums; their owners, whose x those rows read while the
+first launch runs, are applied by a second launch over ``owner_table``
+from their ordered sums (``ops/segment.py::owner_sums``).  Every other
+configuration runs the passes above.
+
 X is f32, bf16 or f16 (``config.dtype``; ``force_kernels.X_DTYPES``, the
 constructor refuses any other, naming it).  The update, ``inv_deg`` and
 the step are in X's dtype, as in the JAX package (its ``sync.py:133-138,
@@ -120,7 +134,8 @@ from force2vec_tpu_torch.dist.spmd import SpmdAxes
 from force2vec_tpu_torch.graphs.csr import Graph, SyncLayout
 from force2vec_tpu_torch.models.forces import get_model
 from force2vec_tpu_torch.ops import force_kernels
-from force2vec_tpu_torch.ops.segment import hub_owner_sum, owner_offsets
+from force2vec_tpu_torch.ops.segment import (hub_owner_sum, owner_offsets,
+                                             owner_sums)
 from force2vec_tpu_torch.train.graph import (IterationGraph, StepBuffer,
                                              check_capturable)
 from force2vec_tpu_torch.train.trainer import (TrainConfig, iteration_seed,
@@ -276,13 +291,24 @@ class SyncForce2Vec:
             raise ValueError(f"{self.model.name} draws walks over the unsplit "
                              "layout; the hot/cold split takes hot_rows=0")
         self.hot_rows = int(hot_rows)
+        # the fused pass (ell_edge_apply: attraction, repulsion and X's
+        # update in one launch), where it may write X while its rows
+        # gather: one rank, no hot table, a model it takes (a CSR
+        # attraction and an add update), and a replica of its own, an f32
+        # X beside a 2-byte gather dtype; else the separate passes
+        self.fused_apply = (
+            spmd.n_dp == 1 and spmd.n_tp == 1 and self.hot_rows == 0
+            and force_kernels.applies(self.model)
+            and self._dtype == torch.float32
+            and self._gdt in (torch.bfloat16, torch.float16))
         # the group-shared repulsion's grouped_rep_force mode (None where
-        # no grouped launch runs: tp, per-vertex negatives): under dp each
-        # rank stores its slice, gathered over the ranks; at one rank an
-        # energy update adds into the update, which it normalises before X
-        # takes it, and any other applies X += update + repulsion
+        # no grouped launch runs: tp, per-vertex negatives, the fused
+        # pass): under dp each rank stores its slice, gathered over the
+        # ranks; at one rank an energy update adds into the update, which
+        # it normalises before X takes it, and any other applies X +=
+        # update + repulsion
         self.rep_mode = (
-            None if self._tp or config.per_vertex_samples
+            None if self._tp or config.per_vertex_samples or self.fused_apply
             else "store" if spmd.n_dp > 1
             else "add" if self.model.update == "energy" else "apply")
         # hot/cold split under dp: the JAX package aligns the span
@@ -320,6 +346,7 @@ class SyncForce2Vec:
                      // max(config.batch_size, 1))
         self.device_buckets = []
         self.edge_table = self.hot_table = self._hub = None
+        self.apply_table = self.owner_table = None
         if self.model.attraction == "walk":
             pool, base = build_walk_tables(lay)
             self.walk_pool = torch.as_tensor(pool, device=dev)
@@ -381,6 +408,8 @@ class SyncForce2Vec:
         else:
             self.edge_table = self._edge_table()
             self.hot_table = self._hot_table(hot, self.edge_table.out_rows)
+        if self.fused_apply:
+            self._fused_tables()
 
     def _hot_table(self, buckets, out_rows: int):
         """The split's hot work table: of each ``(hot_nbr, hot_deg, xi_row,
@@ -444,6 +473,49 @@ class SyncForce2Vec:
                       rest))
         hub_rows = hub.nbr.shape[0] if hub else 0
         return force_kernels.edge_work_table(parts, n_pad, n_pad + hub_rows)
+
+    def _fused_tables(self) -> None:
+        """The fused pass's tables (``ell_edge_apply``), each a ``(table,
+        flags)`` pair of ``force_kernels.apply_table``: ``apply_table``,
+        ``edge_table``'s entries over its arrays, every bucket's rows and
+        the padding rows applying their update to X, the hub's virtual rows
+        storing their partial sums in rows [0, hub rows) of the launch's
+        output; and with a hub ``owner_table``, its owner rows [hub.start,
+        n) (no slot), which a second launch applies from their ordered
+        sums.  The first launch leaves the owners out: the hub's virtual
+        rows read their x while it runs.  Checks that the two launches
+        apply every row of X exactly once."""
+        fk, lay, hub = force_kernels, self.layout, self._hub
+        entries, apply = [], []
+        for rb, nb, ob, rows, width in self.edge_table.entries.tolist():
+            if hub is not None and ob == lay.n_pad:  # the virtual rows
+                entries.append((rb, nb, 0, rows, width))
+                apply.append(False)
+                continue
+            if width == 0 and ob < lay.n:  # the owners, then the padding
+                rb, rows, ob = rb + lay.n - ob, rows - (lay.n - ob), lay.n
+            if rows:
+                entries.append((rb, nb, ob, rows, width))
+                apply.append(True)
+        self.apply_table = fk.apply_table(
+            self.edge_table, apply, entries,
+            out_rows=hub.nbr.shape[0] if hub else 0)
+        if hub is not None:
+            m, dev = lay.n - hub.start, self.device
+            self.owner_table = fk.apply_table(fk.EdgeWorkTable.single(
+                torch.zeros((m, 0), dtype=torch.int32, device=dev),
+                torch.zeros(m, dtype=torch.int32, device=dev),
+                torch.arange(hub.start, lay.n, dtype=torch.int32,
+                             device=dev), lay.n_pad), [True], out_rows=0)
+        tables = [t for t in (self.apply_table, self.owner_table) if t]
+        applied = torch.bincount(
+            torch.cat([fk.applied_rows(*t) for t in tables]),
+            minlength=lay.n_pad)
+        if not bool((applied == 1).all()):
+            raise ValueError(
+                "the fused pass must apply every row of X once, but "
+                f"{int((applied != 1).sum())} of {lay.n_pad} rows are "
+                "applied another number of times")
 
     def _dp_rows(self):
         """This dp rank's contiguous 1/dp of the table rows."""
@@ -761,6 +833,23 @@ class SyncForce2Vec:
         return upd.add_(self._place_rows(
             self._rank_repulsion(x, xg, negs, step, plain)))
 
+    def _fused_iteration(self, x, xg, negs, step, plain) -> torch.Tensor:
+        """The iteration as the fused pass (``fused_apply``): one
+        ``ell_edge_apply`` launch over ``apply_table``, then with a hub one
+        over ``owner_table``, its attraction the owners' ordered sums of
+        the first launch's partial rows.  Returns X, updated in place."""
+        fk, hub = force_kernels, self._hub
+        launch = fk.ell_edge_apply_plain if plain else fk.ell_edge_apply
+        group = (1 if self.config.per_vertex_samples
+                 else max(self.config.batch_size, 1))
+        part = launch(self.model, x, xg, *self.apply_table, self.inv_deg,
+                      negs, group, step)
+        if hub is not None:
+            launch(self.model, x, xg, *self.owner_table, self.inv_deg, negs,
+                   group, step,
+                   upd=owner_sums(part[: hub.n_virtual], hub.owner_off))
+        return x
+
     def _replica(self, x: torch.Tensor) -> torch.Tensor:
         """The iteration's gather table: an f32 X cast to ``gather_dtype``
         (X itself without one); a bf16 or f16 X itself, also beside an f32
@@ -782,6 +871,8 @@ class SyncForce2Vec:
         """One iteration on X in place; ``step`` a float or the 0-d f32
         step buffer (the same bits either way)."""
         xg = self._replica(x)
+        if self.fused_apply:
+            return self._fused_iteration(x, xg, negs, step, plain)
         upd = self._forces(x, xg, negs, walks, step, plain)
         if self.rep_mode == "apply":  # the repulsion launch applied X
             return x

@@ -428,7 +428,8 @@ def test_plain_path_launches_nothing():
                             fv.edge_table, fv.inv_deg, STEP)
     assert fk.launch_counts == {"ell_edge_force": 0, "grouped_rep_force": 0,
                                 "ell_sample_force": 0, "tp_pair_partial": 0,
-                                "tp_pair_force": 0, "tp_all_reduce": 0}
+                                "tp_pair_force": 0, "tp_all_reduce": 0,
+                                "ell_edge_apply": 0}
 
 
 def test_build_names_library_by_source_hash(monkeypatch, tmp_path):
@@ -437,6 +438,7 @@ def test_build_names_library_by_source_hash(monkeypatch, tmp_path):
     assert path.name.startswith("libf2v_kernels_") and path.suffix == ".so"
     assert {p.name for p in _build.sources()} == {
         "ell_edge_force.cu", "grouped_rep_force.cu", "ell_sample_force.cu",
+        "ell_edge_apply.cu",
         "take_sum.cu", "tile_force_tc.cu", "resident_gather.cu",
         "read_sum.cu", "tp_pair_force.cu"}
     # an edited source gets another library
