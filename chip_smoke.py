@@ -356,12 +356,27 @@ run it), after path K in the full run:
     repulsion's launches it replaces, and the fused iteration against
     ``separate_iteration`` in turns.
 
+Path N (the carried replica, ``SyncForce2Vec.replica_carry``: the launch
+that writes X also writes the replica the next iteration gathers from, so
+no cast of X runs in an iteration), after path M in the full run:
+
+57. (N1) at the bench graph and at com-Youtube's vertex count, for the
+    sync trainer, ``-bs 1`` and rwalk: N_ITERS iterations through
+    ``run_span`` (one span: a capture and replays; one span an iteration,
+    as the benchmark calls it; two spans with X rewritten in place between
+    them) against the eager loop that casts X into a fresh replica each
+    iteration, bit for bit; the replica the next iteration reads equal to
+    ``x.to(gather_dtype)``; the counters: one cast a new X (and one a
+    rewrite), one carried iteration a replay;
+58. (N2) at com-Youtube's vertex count: the launches that write X queued
+    with and without the replica's store, beside the cast they replace.
+
 ``python3 chip_smoke.py --path F`` builds the kernels and runs path F
 alone (a check of the multi-card schedules on a host with several cards,
 where F4 captures every multi-rank runner);
 ``--path G`` runs path G alone, ``--path H`` path H, ``--path I`` path I,
 ``--path J`` path J, ``--path K`` path K, ``--path L`` path L, ``--path
-M`` path M.
+M`` path M, ``--path N`` path N.
 
 The quality margins are half of what the JAX package reaches on the CPU
 with the same graph, configuration and iteration count
@@ -421,6 +436,7 @@ from force2vec_tpu_torch.train.checkpoint import load_checkpoint
 from force2vec_tpu_torch.train.graph import IterationGraph
 from force2vec_tpu_torch.train.trainer import (Force2Vec, TrainConfig,
                                                iteration_seed, round_to)
+from force2vec_tpu_torch.utils import profiling
 from force2vec_tpu_torch.utils.profiling import Meter
 
 TRAIN_ITERS = 50
@@ -629,6 +645,12 @@ M_ITERS = 50
 M_DIMS = (8, 64, 100, 128, 256)
 M_GATHERS = (torch.bfloat16, torch.float16)
 M_UPD_ERR = 5.6e-6
+# path N, the carried replica: N_ITERS iterations of each configuration
+# that carries it (what, TrainConfig over the bench's, replicas), at the
+# bench graph and at com-Youtube's vertex count (WALK_BIG_N)
+N_ITERS = 20
+N_CONFIGS = (("sync", {}, 2), ("-bs 1", dict(per_vertex_samples=True), 2),
+             ("rwalk", dict(model="rwalk"), 1))
 # path L, run_span and train() as a CUDA graph: L_ITERS iterations of each
 # configuration against the eager loop from the same seed, the same run in
 # spans, bit for bit, and two eager runs against each other, in torch's
@@ -5411,6 +5433,146 @@ def fused_path(graph, dev, card):
     return rec, total
 
 
+# -- path N: the carried replica ------------------------------------------------
+
+
+def carry_counts() -> dict:
+    """The carried replica's counters and the replays, in the span
+    registry since its last reset."""
+    c = profiling.snapshot()["counters"]
+    return {k: int(c.get(k, 0)) for k in ("replica.casts", "replica.carried",
+                                          "span.replays")}
+
+
+def cast_each_iteration(fv, x, its):
+    """Iterations ``its`` of seed 1 on X in place, eagerly, each gathering
+    from a fresh cast of X (``_replica``): the iteration before the
+    carry."""
+    for it in its:
+        fv._span_gen.manual_seed(iteration_seed(1, it))
+        negs, walks = fv._draw(fv._span_gen)
+        fv._iteration(x, negs, walks, fv._step(it), plain=False)
+    return x
+
+
+def carry_runs(fv, what, replicas, errs) -> dict:
+    """N1: ``fv``'s run_span with the carried replica, three ways, each
+    from ``init_embedding(seed=1)`` on a new X, against
+    ``cast_each_iteration``: one span of N_ITERS; N_ITERS spans of one
+    (the benchmark's calls); two halves with X rewritten in place between
+    them (``copy_`` of its own values: a new version, which must cast
+    again).  Each bit for bit, the next replica ``x.to(gather_dtype)``,
+    and the counters exact."""
+    k = fv.replica_carry
+    check(k == replicas, f"path N {what}: {k} replicas, not {replicas}")
+    x0 = fv.init_embedding(seed=1)
+    want = cast_each_iteration(fv, x0.clone(), range(N_ITERS))
+    half = N_ITERS // 2
+    rec = {}
+
+    def one(x):
+        fv.run_span(x, 1, N_ITERS)
+
+    def each(x):
+        for it in range(N_ITERS):
+            fv.run_span(x, 1, 1, it)
+
+    def rewritten(x):
+        fv.run_span(x, 1, half)
+        x.copy_(x.clone())
+        fv.run_span(x, 1, N_ITERS - half, half)
+
+    expect = {"one span": (1, N_ITERS - 1), "a span an iteration":
+              (1, N_ITERS - 1), "X rewritten": (2, N_ITERS - 2)}
+    for name, run in (("one span", one), ("a span an iteration", each),
+                      ("X rewritten", rewritten)):
+        profiling.reset()
+        x = x0.clone()
+        run(x)
+        torch.cuda.synchronize()
+        c = carry_counts()
+        same = torch.equal(x, want)
+        nxt = torch.equal(fv._replicas[N_ITERS % k], x.to(fv._gdt))
+        casts, carried = expect[name]
+        rec[name] = dict(same_bits=same, next_replica=nxt, **c)
+        say(f"N1 {what}, {name}: X after {N_ITERS} iterations vs a cast "
+            f"each iteration {'the same bits' if same else 'DIFFERENT'} "
+            f"(max |err| {max_err(x, want):.3e}); next replica = cast "
+            f"{nxt}; casts {c['replica.casts']}, carried "
+            f"{c['replica.carried']}, replays {c['span.replays']}")
+        if not same:
+            errs.append(f"{what} {name}: X differs from a cast each "
+                        "iteration")
+        if not nxt:
+            errs.append(f"{what} {name}: the next replica is not X's cast")
+        if (c["replica.casts"], c["replica.carried"]) != (casts, carried):
+            errs.append(f"{what} {name}: casts, carried {c} != "
+                        f"{(casts, carried)}")
+        if c["replica.carried"] != c["span.replays"] - (name == "X rewritten"):
+            errs.append(f"{what} {name}: carried != replays: {c}")
+    return rec
+
+
+def carry_timing(fv, what, card) -> dict:
+    """N2: queued, warm, in turns: the launches of ``fv``'s iteration that
+    write X with the next replica's store and without, and the cast that
+    the store replaces."""
+    x0 = fv.init_embedding(seed=1)
+    gen = torch.Generator(fv.device).manual_seed(3)
+    negs, walks = fv._draw(gen)
+    model, step, gdt = fv.model, fv.lr, fv._gdt
+    x, xg = x0.clone(), x0.to(gdt)
+    nxt = torch.empty_like(xg)
+    if fv.fused_apply:
+        group = 1 if fv.config.per_vertex_samples else fv.config.batch_size
+        rest = (xg, *fv.apply_table, fv.inv_deg, negs, group, step)
+        launch = {"store": lambda: fk.ell_edge_apply(model, x, *rest,
+                                                     xg_next=nxt),
+                  "none": lambda: fk.ell_edge_apply(model, x, *rest)}
+    else:
+        upd = fk.ell_edge_force(model, x, xg, walks, fv._walk_deg,
+                                fv._all_rows, fv.inv_deg, step)
+        sg = xg[negs.long()]
+        group = fv.config.batch_size
+        launch = {"store": lambda: fk.grouped_rep_force(
+                      model, group, x, sg, step, mode="apply", upd=upd,
+                      xg_next=nxt),
+                  "none": lambda: fk.grouped_rep_force(
+                      model, group, x, sg, step, mode="apply", upd=upd)}
+    times = {"store": [], "none": []}
+    for m in ("none", "store", "store", "none"):
+        times[m].append(queued_device_ms(launch[m], reps=20))
+    cast = queued_device_ms(lambda: x.to(gdt), reps=20)
+    name = "ell_edge_apply" if fv.fused_apply else "grouped_rep_force apply"
+    say(f"N2 {what}: {name} queued ms with the replica's store "
+        f"{times['store']}, without {times['none']}; the cast "
+        f"{cast:.4f} [{card}]")
+    return {"launch": name, **times, "cast": cast}
+
+
+def carry_path(graph, dev, card):
+    """Path N: the carried replica (N1) at the bench graph and at
+    com-Youtube's vertex count, and its stores timed there (N2).  Returns
+    (record, launch counts)."""
+    errs, rec = [], {"N1": {}, "N2": {}}
+    reset_counts()
+    big = synth_powerlaw_graph(n=WALK_BIG_N, avg_deg=WALK_BIG_DEG)
+    for gname, g in (("bench", graph), (f"n={WALK_BIG_N}", big)):
+        for what, kw, replicas in N_CONFIGS:
+            fv = SyncForce2Vec(g, dataclasses.replace(BENCH_CONFIG, **kw),
+                               MIN_WIDTH, HUB_WIDTH, device=dev)
+            tag = f"{what} @ {gname}"
+            rec["N1"][tag] = carry_runs(fv, tag, replicas, errs)
+            if g is big:
+                rec["N2"][tag] = carry_timing(fv, tag, card)
+            del fv
+    counts = read_counts()
+    for e in errs:
+        say(f"N FAILED: {e}")
+    check(not errs, f"path N: {len(errs)} failures: {errs}")
+    return rec, counts
+
+
 # -- path L: run_span and train() as a CUDA graph --------------------------------
 
 
@@ -5792,6 +5954,15 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if sys.argv[1:] == ["--path", "N"]:
+        t0 = time.perf_counter()
+        rec, counts = carry_path(graph, dev, card)
+        say(f"path N (the carried replica): {time.perf_counter() - t0:.1f} s")
+        say(json.dumps({"path_N_launches": counts, "carry": rec}))
+        say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if sys.argv[1:] == ["--path", "L"]:
         t0 = time.perf_counter()
         rec, counts = graph_path(graph, dev, card)
@@ -5907,6 +6078,9 @@ def main() -> int:
     fused, counts_fused = fused_path(graph, dev, card)
     say(f"path M (the fused pass): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    _, counts_carry = carry_path(graph, dev, card)
+    say(f"path N (the carried replica): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     rep["modes"], counts_modes = path_j_process()
     say(f"path J (repulsion modes, --path J): "
         f"{time.perf_counter() - t0:.1f} s")
@@ -5930,7 +6104,7 @@ def main() -> int:
              "widths": counts_widths, "split": counts_split,
              "x_bf16": counts_bf16, "x_f16": counts_f16,
              "rep_modes": counts_modes, "graph": counts_graph,
-             "fused": counts_fused}
+             "fused": counts_fused, "carry": counts_carry}
     for name, m in (("ell_edge_force", edge), ("grouped_rep_force", rep),
                     ("ell_sample_force", sample)):
         (m["queued_ms_dim64"], m["bound_ms_dim64"],

@@ -58,16 +58,17 @@ _SIGNATURES = {
                            _P, _I, _I, _I, _P),
     # xi, sg, sg_dtype, xi_dtype (xi, out and upd in xi's), sm_table,
     # step (a device f32 scalar), out, upd, part (f32 scratch of a chunked
-    # sum), mode (0 store, 1 add, 2 apply), rows, group, ns, dim, model,
-    # stream
-    "f2v_grouped_rep_force": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I,
-                              _I, _I, _I, _I, _P),
+    # sum), xg_next (apply: the next replica, or null), xg_next_dtype, mode
+    # (0 store, 1 add, 2 apply), rows, group, ns, dim, model, stream
+    "f2v_grouped_rep_force": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I,
+                              _I, _I, _I, _I, _I, _I, _P),
     # x, xg, xg_dtype, x_dtype (a pair of apply_pairs), nbr, deg, xi_row,
-    # invd, sm_table, step (a device f32 scalar), out, negs, upd,
-    # apply_mask, group, ns, table (host [n_entries, 5] int64), n_entries,
-    # dim, model, stream
+    # invd, sm_table, step (a device f32 scalar), out, negs, upd, xg_next
+    # (the next replica, or null), apply_mask, group, ns, table (host
+    # [n_entries, 5] int64), n_entries, dim, model, stream
     "f2v_ell_edge_apply": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _P, ctypes.c_uint64, _I, _I, _P, _I, _I, _I, _P),
+                           _P, _P, ctypes.c_uint64, _I, _I, _P, _I, _I, _I,
+                           _P),
     # x, xg, xg_dtype, x_dtype (x and out in x's), idx, deg, xi_row,
     # sm_table, step (a device f32 scalar), out, accumulate, rows, width,
     # dim, model, stream

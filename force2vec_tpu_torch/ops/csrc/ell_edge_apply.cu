@@ -11,7 +11,12 @@
 // accumulate followed by `x.add_(upd)`).  A storing entry writes its rows'
 // attraction sums into out, as ell_edge_force.cu does: the hub's virtual
 // rows, whose owners a second launch over the owner rows applies from
-// their ordered sums (`upd`, ops/segment.py::owner_sums).  group is the
+// their ordered sums (`upd`, ops/segment.py::owner_sums).  Where xg_next
+// is given, an applied row also writes its new X rounded to the replica's
+// type into xg_next[i] (__float2bfloat16_rn / __float2half_rn, the bits
+// of torch's cast): the replica the next iteration gathers from, so that
+// no cast of X runs between iterations.  It must be a buffer other than
+// xg, which the launch's other rows are still reading.  group is the
 // batch of rows that share their negatives (1 for per-vertex negatives,
 // `-bs 1`, whose negs are [n_pad, ns]): one code path for both.  The
 // update never goes through device memory.
@@ -44,6 +49,7 @@ struct ApplyArgs : EllArgs<T, TX> {
   TX* xw;                // X itself, written: the applied rows
   const int32_t* negs;   // [groups, ns] sample ids, rows of xg
   const TX* upd;         // [rows, dim] the applied rows' attraction, or null
+  T* xg_next;            // [n_pad, dim] the next replica, written, or null
   uint64_t apply_mask;   // bit k: entry k applies (else stores into out)
   int group;             // rows a set of negatives serves
   int ns;                // samples a set
@@ -118,6 +124,7 @@ struct ApplyRep {
         rep);
     if (!live) return;
     TX* xo = p.xw + int64_t(i) * dim;
+    T* xn = p.xg_next == nullptr ? nullptr : p.xg_next + int64_t(i) * dim;
     const TX* u = p.upd == nullptr ? nullptr : p.upd + (e.out_begin + r) * dim;
 #pragma unroll
     for (int c = 0; c < P; ++c) {
@@ -136,6 +143,8 @@ struct ApplyRep {
                                        a[v], round_to<TX>(rep[c][v]))));
       }
       store_x<TX, E>(xo + (c * G + gl) * E, o);
+      // the row's piece in the replica's type: one 16-byte store
+      if (xn != nullptr) store_x<T, E>(xn + (c * G + gl) * E, o);
     }
   }
 };
@@ -214,7 +223,9 @@ template cudaError_t apply_launch(
 // int32 sample ids, rows of xg, row i taking set i / group.  model: the
 // edge model (EdgeModel: tdist, sigmoid or sigmoid with the table), whose
 // sample force is its own.  xg_dtype, x_dtype: a pair of
-// F2V_APPLY_PAIRS; x must not be xg.  step: a device f32 scalar, read by
+// F2V_APPLY_PAIRS; x must not be xg.  xg_next: null, or a [n_pad, dim]
+// buffer of xg's type, neither x nor xg, into which each applied row
+// writes its new X rounded to that type.  step: a device f32 scalar, read by
 // the kernel (a captured launch reads each replay's).
 extern "C" int f2v_ell_edge_apply(const void* x, const void* xg,
                                   int xg_dtype, int x_dtype,
@@ -222,12 +233,12 @@ extern "C" int f2v_ell_edge_apply(const void* x, const void* xg,
                                   const void* xi_row, const void* invd,
                                   const void* sm_table, const void* step,
                                   void* out, const void* negs,
-                                  const void* upd,
+                                  const void* upd, void* xg_next,
                                   unsigned long long apply_mask, int group,
                                   int ns, const void* table, int n_entries,
                                   int dim, int model, void* stream) {
   if (step == nullptr || negs == nullptr || group <= 0 || ns <= 0 ||
-      x == xg) {
+      x == xg || xg_next == x || xg_next == xg) {
     return cudaErrorInvalidValue;
   }
   auto go = [&](auto types) {
@@ -247,6 +258,7 @@ extern "C" int f2v_ell_edge_apply(const void* x, const void* xg,
     p.dim = dim;
     p.negs = static_cast<const int32_t*>(negs);
     p.upd = static_cast<const TX*>(upd);
+    p.xg_next = static_cast<T*>(xg_next);
     p.apply_mask = apply_mask;
     p.group = group;
     p.ns = ns;

@@ -20,7 +20,13 @@
 //          x.add_(upd) of a store, bit for bit (the JAX iteration's
 //          x + (upd + rep)), and upd left as it was.  Each element of X is
 //          read and written by one thread, its read before its write; the
-//          samples are a copy gathered before the launch.
+//          samples are a copy gathered before the launch.  With an f32 X
+//          and xg_next given, each row's new X is also written rounded to
+//          xg_next's type (bf16 or f16, a runtime flag: torch's cast, bit
+//          for bit), the replica the next iteration gathers from; the
+//          sigmoid family's instances only (kStoresReplica: rwalk's
+//          repulsion, which the sync trainer runs in this mode beside a
+//          2-byte replica).
 //
 // What bounds it: by its bytes, memory.  At the bench shape (131,072 x
 // 128) store reads xi and writes out, 2 x 33.6 MB with X in bf16 (0.020 ms
@@ -73,6 +79,7 @@ struct RepArgs {
   const void* upd;        // apply: [rows, dim], X's type
   void* out;              // [rows, dim], X's type; apply: X (== xi)
   float* part;            // [rows, dim] f32 sums between chunks, or null
+  void* xg_next;          // apply, f32 X: [rows, dim] the next replica, or null
   const float* step;      // the step, a device scalar (read by each replay)
   int rows;
   int group;
@@ -80,6 +87,7 @@ struct RepArgs {
   int dim;
   int mode;      // RepMode, applied by the last chunk
   int sg_dtype;  // DType code
+  int xg_next_dtype;  // DType code of xg_next: kBf16 or kF16
   int c0;        // this launch's samples: [c0, c0 + cn) of each group's ns
   int cn;
   int part_in;   // continue the f32 sums in part (a chunk after the first)
@@ -118,6 +126,30 @@ __device__ __forceinline__ void fill_samples(const RepArgs& p, float* samples,
     fill_typed<__half>(p, samples, g);
   } else {
     fill_typed<float>(p, samples, g);
+  }
+}
+
+// The instances that hold the next replica's store: an f32 X and the
+// sigmoid family's repulsion.  tdist's and the layout family's f32
+// instances run 8 blocks an SM at 32 registers (kRepMinBlocks), where the
+// store spilled 4 to 12 bytes; the sync trainer never asks them for it
+// (tdist's iteration writes its replica in ell_edge_apply).
+template <typename TX, int M>
+constexpr bool kStoresReplica = std::is_same_v<TX, float> &&
+                                (M == kSigmoidRep || M == kSigmoidTableRep);
+
+// X's new row piece o, at element off, into the next replica (apply with
+// an f32 X): a piece of 4 f32 as 4 bf16 or f16, one 8-byte store.
+template <typename TX, int M, int E>
+__device__ __forceinline__ void store_replica(const RepArgs& p, int64_t off,
+                                              const float (&o)[E]) {
+  if constexpr (kStoresReplica<TX, M>) {
+    if (p.xg_next_dtype == kBf16) {
+      store_x<__nv_bfloat16, E>(static_cast<__nv_bfloat16*>(p.xg_next) + off,
+                                o);
+    } else {
+      store_x<__half, E>(static_cast<__half*>(p.xg_next) + off, o);
+    }
   }
 }
 
@@ -224,6 +256,7 @@ __device__ __forceinline__ void rep_rows(const RepArgs& p,
                                     : __fadd_rn(xi[c][v], round_to<TX>(sum));
         }
         store_x<TX, E>(out + off, o);
+        if (p.xg_next != nullptr) store_replica<TX, M, E>(p, off, o);
       }
     }
   }
@@ -345,7 +378,9 @@ template cudaError_t rep_launch<TypeOf<F2V_X>>(int, RepArgs, cudaStream_t);
 
 #ifndef F2V_X
 // mode: 0 store (into out), 1 add (into out), 2 apply (xi is X, out must
-// be xi, upd the update).  sm_table: the device's [2048] f32 sigmoid table
+// be xi, upd the update; xg_next: null, or with an f32 xi and the sigmoid
+// family's model a [rows, dim] buffer of type xg_next_dtype (bf16 or f16)
+// that takes X's new rows rounded to it).  sm_table: the device's [2048] f32 sigmoid table
 // for kSigmoidTableRep, else unused (may be null).  sg_dtype, xi_dtype: the
 // samples' and xi's (xi, out and upd) element types, DType codes (an f32
 // xi with samples of any type, another xi with its own).  part: an f32
@@ -356,13 +391,18 @@ extern "C" int f2v_grouped_rep_force(const void* xi, const void* sg,
                                      int sg_dtype, int xi_dtype,
                                      const void* sm_table, const void* step,
                                      void* out, const void* upd, void* part,
+                                     void* xg_next, int xg_next_dtype,
                                      int mode, int rows, int group, int ns,
                                      int dim, int model, void* stream) {
   if (rows <= 0) return cudaSuccess;
   if (step == nullptr || group <= 0 || ns <= 0 || dim < f2v::kRowAlign ||
       dim > f2v::kMaxDim || dim % f2v::kRowAlign != 0 ||
       mode < f2v::kStoreMode || mode > f2v::kApplyMode ||
-      (mode == f2v::kApplyMode && (upd == nullptr || out != xi))) {
+      (mode == f2v::kApplyMode && (upd == nullptr || out != xi)) ||
+      (xg_next != nullptr &&
+       (mode != f2v::kApplyMode || xi_dtype != f2v::kF32 ||
+        (model != f2v::kSigmoidRep && model != f2v::kSigmoidTableRep) ||
+        (xg_next_dtype != f2v::kBf16 && xg_next_dtype != f2v::kF16)))) {
     return cudaErrorInvalidValue;
   }
   f2v::RepArgs p{};
@@ -379,6 +419,8 @@ extern "C" int f2v_grouped_rep_force(const void* xi, const void* sg,
   p.dim = dim;
   p.mode = mode;
   p.sg_dtype = sg_dtype;
+  p.xg_next = xg_next;
+  p.xg_next_dtype = xg_next_dtype;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return f2v::with_dtypes(sg_dtype, xi_dtype, [&](auto types) {
     return f2v::rep_launch<typename decltype(types)::TX>(model, p, s);

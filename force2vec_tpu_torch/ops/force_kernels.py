@@ -19,6 +19,10 @@ The counterpart of ``force2vec_tpu/ops/pallas_force.py``:
   table and a flag an entry, which applies or stores (``apply_table``),
   for an f32 X beside a 2-byte replica; the update never goes through
   device memory;
+* the two launches that write X (``ell_edge_apply`` and
+  ``grouped_rep_force``'s ``apply``) take ``xg_next``: a 2-byte buffer
+  into which each row's new X is also written, rounded as ``x.to(dtype)``
+  rounds it, so that the next iteration's replica needs no cast of X;
 * ``tp_pair_partial`` and ``tp_pair_force`` (``csrc/tp_pair_force.cu``):
   any of those forces with the dim split over tp ranks, in two launches
   around the caller's ``all_reduce`` of the pair scalars; the JAX package
@@ -122,6 +126,9 @@ _MAX_SAMPLE_BYTES = 48 * 1024
 # grouped_rep_force's output modes (csrc/grouped_rep_force.cu::RepMode):
 # store rep, add it into out, apply X += upd + rep in place
 REP_MODES = ("store", "add", "apply")
+# the sample forces whose grouped apply also writes the next replica
+# (csrc/grouped_rep_force.cu::kStoresReplica): the sigmoid family's, rwalk's
+_NEXT_REP_MODELS = {forces._sigmoid_rep, forces._sigmoid_table_rep}
 
 
 def reset_launch_counts() -> None:
@@ -176,6 +183,23 @@ def _check_x(name, x, xg, ndim, xg_ndim):
                            if (_code(d), _code(x)) in pairs)
         raise ValueError(f"a {x.dtype} {name} gathers from {rows} rows, not "
                          f"{xg.dtype}")
+
+
+def _check_next(xg_next, x, reads) -> None:
+    """``xg_next``, the replica a launch that writes X also writes: None,
+    or a contiguous tensor of x's shape on its device, bf16 or f16 beside
+    an f32 x, a buffer of its own: none of ``x`` and the tensors the
+    launch ``reads`` (the replica it gathers from, its samples)."""
+    if xg_next is None:
+        return
+    _require(x.dtype == torch.float32,
+             f"xg_next is the replica of an f32 X, not of a {x.dtype} one")
+    _check("xg_next", xg_next, (torch.bfloat16, torch.float16), 2, x.device)
+    _require(xg_next.shape == x.shape,
+             f"xg_next {tuple(xg_next.shape)} != x {tuple(x.shape)}")
+    _require(all(xg_next.data_ptr() != t.data_ptr() for t in (x, *reads)),
+             "xg_next must be a buffer of its own: not x, nor what the "
+             "launch reads")
 
 
 def _code(t) -> int:
@@ -509,11 +533,13 @@ def grouped_rep_force_terms(model: ForceModel, group: int, xi, sg,
     return model.sample_force(xi.float()[:, None, :], s, step)
 
 
-def _check_rep_mode(model: ForceModel, mode: str, xi, out, upd) -> None:
+def _check_rep_mode(model: ForceModel, mode: str, xi, out, upd,
+                    xg_next=None, sg=None) -> None:
     """The operands ``mode`` reads: ``out`` for ``add``, ``upd`` for
     ``apply`` (X's update; xi is X itself), each ``[C, D]`` of xi's dtype
-    on its device, and neither where the mode does not read it.  ``apply``
-    is refused with an energy model, whose update is normalised between the
+    on its device, and neither where the mode does not read it; and
+    ``xg_next`` only with ``apply`` (``_check_next``).  ``apply`` is
+    refused with an energy model, whose update is normalised between the
     repulsion and X."""
     _require(mode in REP_MODES, f"mode {mode!r} not in {REP_MODES}")
     _require(not (mode == "apply" and model.update == "energy"),
@@ -527,31 +553,44 @@ def _check_rep_mode(model: ForceModel, mode: str, xi, out, upd) -> None:
             _check(name, t, (xi.dtype,), 2, xi.device)
             _require(t.shape == xi.shape,
                      f"{name} {tuple(t.shape)} != xi {tuple(xi.shape)}")
+    _require(xg_next is None or mode == "apply",
+             f"mode {mode!r} writes no X, so no next replica")
+    _require(xg_next is None or model.sample_force in _NEXT_REP_MODELS,
+             f"{model.name}'s grouped repulsion writes no next replica (the "
+             "sigmoid family's does: csrc/grouped_rep_force.cu::"
+             "kStoresReplica)")
+    _check_next(xg_next, xi, (sg,) if sg is not None else ())
 
 
 def grouped_rep_force_plain(model: ForceModel, group: int, xi, sg, step, *,
                             mode: str = "store",
                             out: Optional[torch.Tensor] = None,
-                            upd: Optional[torch.Tensor] = None):
+                            upd: Optional[torch.Tensor] = None,
+                            xg_next: Optional[torch.Tensor] = None):
     """rep[r] = Σ_s sample_force(xi[r], sg[r // group, s]): the group
     expand, the model's sample force in f32 and a sum over ns, rounded to
     xi's dtype.  ``store``: returns rep; ``add``: ``out.add_(rep)``,
     returns out; ``apply``: ``xi.add_(upd + rep)`` in place (xi is X, each
     add rounded to its dtype, as ``upd.add_(rep); x.add_(upd)`` rounds,
-    with upd left as it was), returns xi."""
-    _check_rep_mode(model, mode, xi, out, upd)
+    with upd left as it was), and ``xg_next.copy_(xi)`` where given;
+    returns xi."""
+    _check_rep_mode(model, mode, xi, out, upd, xg_next, sg)
     rep = grouped_rep_force_terms(model, group, xi, sg,
                                   step).sum(dim=1).to(xi.dtype)
     if mode == "store":
         return rep
     if mode == "add":
         return out.add_(rep)
-    return xi.add_(upd + rep)
+    xi.add_(upd + rep)
+    if xg_next is not None:
+        xg_next.copy_(xi)
+    return xi
 
 
 def grouped_rep_force(model: ForceModel, group: int, xi, sg, step, *,
                       mode: str = "store", out: Optional[torch.Tensor] = None,
-                      upd: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      upd: Optional[torch.Tensor] = None,
+                      xg_next: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Grouped-negative repulsion with the group expand kept on chip.
 
     xi [C, D] f32, bf16 or f16, row r in group r // group; sg [ng, ns, D] of
@@ -565,7 +604,11 @@ def grouped_rep_force(model: ForceModel, group: int, xi, sg, step, *,
       bit); returns out;
     * ``apply``: xi is X; X ← X + (upd + rep) in place, ``upd`` [C, D]
       its update (``upd.add_(rep); x.add_(upd)`` bit for bit, upd left as
-      it was; refused with an energy model); returns xi.
+      it was; refused with an energy model); returns xi.  With an f32 X
+      and ``xg_next`` [C, D] bf16 or f16 (``_check_next``), each row's new
+      X is also written into it, ``xg_next.copy_(x)`` bit for bit: the
+      replica the next iteration gathers from (the sigmoid family's
+      repulsion only, ``_NEXT_REP_MODELS``).
 
     One launch, or one a chunk of samples where ns·D f32 pass
     ``_MAX_SAMPLE_BYTES`` (ns > 12 at D = 1024), the chunks' f32 sums
@@ -580,17 +623,18 @@ def grouped_rep_force(model: ForceModel, group: int, xi, sg, step, *,
     ng, ns, sdim = sg.shape
     _require(sdim == dim, f"sg dim {sdim} != xi dim {dim}")
     _require(ng * group >= c, f"{ng} groups of {group} cover fewer than {c} rows")
-    _check_rep_mode(model, mode, xi, out, upd)
+    _check_rep_mode(model, mode, xi, out, upd, xg_next, sg)
     if dev.type == "cpu":
         return grouped_rep_force_plain(model, group, xi, sg, step, mode=mode,
-                                       out=out, upd=upd)
+                                       out=out, upd=upd, xg_next=xg_next)
     _require(dev.type == "cuda", f"no kernel for device {dev}")
     _require(ns > 0, "sg holds no samples")
     if mode == "store":
         out = torch.empty((c, dim), dtype=xi.dtype, device=dev)
     elif mode == "apply":
         out = xi
-    _check_cuda_operands(dim, xi, sg, out, *(() if upd is None else (upd,)))
+    _check_cuda_operands(dim, xi, sg, out, *(t for t in (upd, xg_next)
+                                              if t is not None))
     chunks = -(-ns // (_MAX_SAMPLE_BYTES // (dim * 4)))
     part = (torch.empty((c, dim), dtype=torch.float32, device=dev)
             if chunks > 1 else None)
@@ -601,7 +645,10 @@ def grouped_rep_force(model: ForceModel, group: int, xi, sg, step, *,
             xi.data_ptr(), sg.data_ptr(), _code(sg), _code(xi),
             _table_ptr(model.sample_force, dev), step.data_ptr(),
             out.data_ptr(), None if upd is None else upd.data_ptr(),
-            None if part is None else part.data_ptr(), REP_MODES.index(mode),
+            None if part is None else part.data_ptr(),
+            None if xg_next is None else xg_next.data_ptr(),
+            _code(xg_next) if xg_next is not None else 0,
+            REP_MODES.index(mode),
             c, group, ns, dim, _SAMPLE_MODEL_IDS[model.sample_force],
             _stream(dev))
     _build.check(lib, "grouped_rep_force", err)
@@ -780,7 +827,7 @@ def _entry_sums(edge, model: ForceModel, x, xg, table: EdgeWorkTable,
 
 
 def _apply_plain(edge, model: ForceModel, x, xg, table: EdgeWorkTable,
-                 apply, invd, negs, group: int, step, out, upd):
+                 apply, invd, negs, group: int, step, out, upd, xg_next):
     """``ell_edge_apply_plain``, its attraction sums from ``edge``."""
     if out is None and table.out_rows:
         out = torch.empty((table.out_rows, x.shape[1]), dtype=x.dtype,
@@ -799,26 +846,31 @@ def _apply_plain(edge, model: ForceModel, x, xg, table: EdgeWorkTable,
         new.append((rows, x[rows] + (att + rep)))
     for rows, v in new:
         x[rows] = v
+        if xg_next is not None:
+            xg_next[rows] = v.to(xg_next.dtype)
     return out
 
 
 def ell_edge_apply_plain(model: ForceModel, x, xg, table: EdgeWorkTable,
                          apply, invd, negs, group: int, step,
                          out: Optional[torch.Tensor] = None,
-                         upd: Optional[torch.Tensor] = None):
+                         upd: Optional[torch.Tensor] = None,
+                         xg_next: Optional[torch.Tensor] = None):
     """The plain version of ``ell_edge_apply``: each storing entry's
     ``ell_edge_force_table_plain`` sums into its output rows; each
     applying entry's attraction (those sums, or ``upd``'s rows),
     repulsion (``_rep_rows``) and X's rows ``x[i] + (att + rep)``, written
-    after every entry has read X.  Returns ``out``."""
+    after every entry has read X (and, cast, into ``xg_next``'s rows where
+    given).  Returns ``out``."""
     return _apply_plain(ell_edge_force_table_plain, model, x, xg, table,
-                        apply, invd, negs, group, step, out, upd)
+                        apply, invd, negs, group, step, out, upd, xg_next)
 
 
 def ell_edge_apply(model: ForceModel, x, xg, table: EdgeWorkTable, apply,
                    invd, negs, group: int, step,
                    out: Optional[torch.Tensor] = None,
-                   upd: Optional[torch.Tensor] = None):
+                   upd: Optional[torch.Tensor] = None,
+                   xg_next: Optional[torch.Tensor] = None):
     """The sync iteration's forces and update in one launch, in place.
 
     For each row r of an entry of ``table`` that ``apply`` flags (both
@@ -840,6 +892,12 @@ def ell_edge_apply(model: ForceModel, x, xg, table: EdgeWorkTable, apply,
     model one ``applies`` takes; step a float or a 0-d f32 tensor on x's
     device.  On the card no row of X is read but by its own row, so X
     takes the update while the launch runs.
+
+    ``xg_next`` [table.n_pad, D] of xg's dtype, a buffer of its own (not
+    x, not xg, which other rows still gather from): each applied row's new
+    X is also written into its row i, rounded as ``x.to(xg.dtype)``
+    rounds it; the tables that apply every row of X once
+    (``SyncForce2Vec._fused_tables``) write the whole next replica.
     """
     _require(applies(model), f"{model.name} has no fused attraction, "
                              "repulsion and apply")
@@ -864,6 +922,10 @@ def ell_edge_apply(model: ForceModel, x, xg, table: EdgeWorkTable, apply,
              f"{table.n_pad}")
     if table.out_rows:
         out = _edge_out(out, table.out_rows, x)
+    _check_next(xg_next, x, (xg,))
+    if xg_next is not None:
+        _require(xg_next.dtype == xg.dtype, f"xg_next must be of the "
+                 f"replica's dtype {xg.dtype}, not {xg_next.dtype}")
     if upd is not None:
         _check("upd", upd, (x.dtype,), 2, dev)
         ends = [ob + rows for (_, _, ob, rows, _), a in
@@ -872,10 +934,10 @@ def ell_edge_apply(model: ForceModel, x, xg, table: EdgeWorkTable, apply,
                  <= upd.shape[0], "upd must hold the applied rows' out rows")
     if dev.type == "cpu":  # the attraction through the edge launch's wrapper
         return _apply_plain(ell_edge_force_table, model, x, xg, table, apply,
-                            invd, negs, group, step, out, upd)
+                            invd, negs, group, step, out, upd, xg_next)
     _require(dev.type == "cuda", f"no kernel for device {dev}")
     _check_cuda_operands(x.shape[1], x, xg,
-                         *(t for t in (out, upd) if t is not None))
+                         *(t for t in (out, upd, xg_next) if t is not None))
     mask = sum(1 << k for k, a in enumerate(apply) if a)
     lib = _build.load_library()
     step = _step_scalar(step, dev)
@@ -886,7 +948,8 @@ def ell_edge_apply(model: ForceModel, x, xg, table: EdgeWorkTable, apply,
             table.xi_row.data_ptr(), invd.data_ptr(),
             _table_ptr(model.edge_coeff, dev), step.data_ptr(),
             None if out is None else out.data_ptr(), negs.data_ptr(),
-            None if upd is None else upd.data_ptr(), mask, group,
+            None if upd is None else upd.data_ptr(),
+            None if xg_next is None else xg_next.data_ptr(), mask, group,
             negs.shape[1], table.entries.ctypes.data, table.entries.shape[0],
             x.shape[1], _EDGE_MODEL_IDS[model.edge_coeff], _stream(dev))
     _build.check(lib, "ell_edge_apply", err)

@@ -36,7 +36,9 @@ and the generators move as in the eager loop.  An iteration whose work
 alternates between two forms (the vertex schedule's ``halo_stale``: the
 exchange issued into one of two static tables, the other read) has one
 body and one graph per parity; iteration ``it`` replays graph ``it %
-parities``.  Each graph has its own memory pool.
+parities``; the sync trainer's carried replica (``train/sync.py``) has
+one a parity too, each gathering from one of two replicas and writing
+the other.  Each graph has its own memory pool.
 
 Collectives are captured as any other launch: the NCCL kernels join the
 graph through the capture stream, so every rank replays one graph an
@@ -121,10 +123,11 @@ class IterationGraph:
     static buffers and drawing from ``gens``; or a sequence of bodies, one
     per parity, iteration ``it`` running ``body[it % len(body)]``.
     ``start(x, it)``: the host's work at
-    the start of a span from iteration ``it``, if any.  ``run`` runs a
-    span: start, prepare, then the body eagerly (the warm-up) and a
+    the start of a span from iteration ``it``, if any; ``end(x, it)``: at
+    the end of a span whose next iteration is ``it``, if any.  ``run``
+    runs a span: start, prepare, then the body eagerly (the warm-up) and a
     capture of each body where X is new, then prepare and a replay for
-    each other iteration.  ``meter``: a ``Meter`` whose phases the bodies
+    each other iteration, then end.  ``meter``: a ``Meter`` whose phases the bodies
     enter, timed at every replay.  The warm-up, the captures and each
     replay are the spans ``span.warmup``, ``span.capture`` and
     ``span.replay`` (``utils/profiling.py``; the counter ``span.replays``).
@@ -139,9 +142,11 @@ class IterationGraph:
     def __init__(self, prepare: Callable[[int, int], None],
                  body: Union[Callable[[torch.Tensor], None], Sequence],
                  gens: Sequence[torch.Generator],
-                 start: Optional[Callable[[torch.Tensor, int], None]] = None):
+                 start: Optional[Callable[[torch.Tensor, int], None]] = None,
+                 end: Optional[Callable[[torch.Tensor, int], None]] = None):
         self._prepare = prepare
         self._start = start
+        self._end = end
         self._bodies = tuple(body) if isinstance(body, (tuple, list)) else (
             body,)
         self._gens = tuple(gens)
@@ -178,19 +183,23 @@ class IterationGraph:
                 if self.meter is not None:
                     self.meter.add_replay(self._phases[q])
         counter("span.replays", len(its))
+        if num_iters > 0 and self._end is not None:
+            self._end(x, iter_offset + num_iters)
         return x
 
     def run_uncaptured(self, x: torch.Tensor, seed: int, num_iters: int,
                        iter_offset: int = 0) -> torch.Tensor:
         """What ``run`` replays, run eagerly on any device (the CPU
         tests' view of the captured code): start, then prepare and the
-        iteration's body for each iteration."""
+        iteration's body for each iteration, then end."""
         n = len(self._bodies)
         if num_iters > 0 and self._start is not None:
             self._start(x, iter_offset)
         for it in range(iter_offset, iter_offset + num_iters):
             self._prepare(seed, it)
             self._bodies[it % n](x)
+        if num_iters > 0 and self._end is not None:
+            self._end(x, iter_offset + num_iters)
         return x
 
     def reset(self) -> None:

@@ -7,7 +7,9 @@ iteration over the degree-sorted ELL layout (graphs/csr.py::SyncLayout):
 
 1. ``xg``: the gather replica of X (``_replica``: X cast to
    ``gather_dtype``, bf16 or f16, for an f32 X; X itself when X is bf16 or
-   f16, ``TrainConfig(dtype="bfloat16" | "float16")``: no cast);
+   f16, ``TrainConfig(dtype="bfloat16" | "float16")``: no cast; in
+   ``run_span``'s iterations with a carried replica, below, the one the
+   previous iteration's launches wrote);
 2. attraction, by the edge kernel (``ell_edge_force``):
 
    * CSR models: one launch over the layout's work table
@@ -63,6 +65,24 @@ store their partial sums; their owners, whose x those rows read while the
 first launch runs, are applied by a second launch over ``owner_table``
 from their ordered sums (``ops/segment.py::owner_sums``).  Every other
 configuration runs the passes above.
+
+The carried replica (``replica_carry``, decided by the constructor): where
+one launch writes every row of an f32 X beside a bf16 or f16 replica at
+one rank with no hot table (the fused pass, or the grouped repulsion's
+``apply``), it also writes each new row, rounded to the replica's dtype,
+into the replica the next iteration gathers from (``xg_next``), and step
+1's cast leaves the iterations of ``run_span``.  The fused pass gathers
+from its replica while it writes, so there are two, iteration ``it``
+gathering from ``_replicas[it % 2]`` and writing the other (one graph a
+parity, ``train/graph.py``); the grouped ``apply`` reads only its
+samples, gathered before it runs, so one replica serves.  A span's first
+iteration gathers from a carried replica only where the last span left
+it on this X: the same tensor, at the same ``_version``, no launch that
+writes X run since (``force_kernels.launch_counts``) and the span starting
+at the iteration after the last; else X is cast into it before the span
+(``_start_span``).  The counters ``replica.carried`` (iterations whose
+replica the previous iteration wrote) and ``replica.casts`` count both.
+``run_iteration`` casts as before and leaves no carried replica.
 
 X is f32, bf16 or f16 (``config.dtype``; ``force_kernels.X_DTYPES``, the
 constructor refuses any other, naming it).  The update, ``inv_deg`` and
@@ -122,8 +142,10 @@ card over a group that is not NCCL's they raise
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import time
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -141,7 +163,7 @@ from force2vec_tpu_torch.train.graph import (IterationGraph, StepBuffer,
                                              check_capturable)
 from force2vec_tpu_torch.train.trainer import (TrainConfig, iteration_seed,
                                                round_to, step_at)
-from force2vec_tpu_torch.utils.profiling import span
+from force2vec_tpu_torch.utils.profiling import counter, span
 
 
 @dataclasses.dataclass
@@ -193,6 +215,12 @@ def _runs(mask: np.ndarray) -> list:
     edges = np.flatnonzero(np.diff(np.concatenate(
         [[0], mask.astype(np.int8), [0]])))
     return list(zip(edges[::2].tolist(), edges[1::2].tolist()))
+
+
+def _next_kw(xg_next) -> dict:
+    """The launch's ``xg_next`` argument where a replica is carried, and
+    none where it is not: the call the uncarried iteration always made."""
+    return {} if xg_next is None else {"xg_next": xg_next}
 
 
 def build_walk_tables(lay: SyncLayout):
@@ -312,6 +340,18 @@ class SyncForce2Vec:
             None if self._tp or config.per_vertex_samples or self.fused_apply
             else "store" if spmd.n_dp > 1
             else "add" if self.model.update == "energy" else "apply")
+        # the carried replica (see the module's docstring): the replicas an
+        # iteration's launches write in turn, 2 on the fused pass, 1 for
+        # the grouped apply, 0 (a cast each iteration) elsewhere
+        carries = self.fused_apply or (
+            self.rep_mode == "apply" and self.hot_rows == 0
+            and self._dtype == torch.float32
+            and self._gdt in (torch.bfloat16, torch.float16))
+        self.replica_carry = (2 if self.fused_apply else 1) if carries else 0
+        self._replicas = None  # allocated by the first span
+        # (weak reference to X, _carry_key) that the last span left valid
+        self._carry_mark = None
+        self._span_first, self._span_cast = 0, False
         # hot/cold split under dp: the JAX package aligns the span
         # rectangles to the dp row quantum, lcm(8, dp)
         self.layout = SyncLayout.build(
@@ -326,9 +366,13 @@ class SyncForce2Vec:
         # run_span on a card: the iteration as a CUDA graph
         # (train/graph.py) reading the step from this buffer
         self._step_buf = StepBuffer(self.device)
+        k = self.replica_carry
         self.span_graph = IterationGraph(
-            self._prepare_iteration, self._static_iteration,
-            (self._span_gen,))
+            self._prepare_iteration,
+            [functools.partial(self._static_iteration, parity=q)
+             for q in range(k)] if k else self._static_iteration,
+            (self._span_gen,), start=self._start_span if k else None,
+            end=self._end_span if k else None)
 
         lay, dev = self.layout, self.device
         self.inv_deg = torch.as_tensor(
@@ -775,12 +819,14 @@ class SyncForce2Vec:
         return (fk.ell_edge_force_plain(*args) if plain
                 else fk.ell_edge_force(*args))
 
-    def _rank_repulsion(self, x, xg, negs, step, plain, upd=None):
+    def _rank_repulsion(self, x, xg, negs, step, plain, upd=None,
+                        xg_next=None):
         """The repulsion of this rank's rows: ``[n_pad, D]``, or under dp
         the ``[n_pad / dp, D]`` of its 1/dp (``_dp_rows``).  Given
         ``upd`` (group-shared negatives at one rank, ``rep_mode`` ``add``
         or ``apply``), the launch adds it into ``upd`` or applies ``X +=
-        upd + rep`` instead, and returns what it wrote."""
+        upd + rep`` instead (and writes X's new rows into ``xg_next``,
+        where given), and returns what it wrote."""
         fk, model = force_kernels, self.model
         r0, r1 = self._rank_rows()
         rows, deg = self._all_rows[r0:r1], self._ns_deg[r0:r1]
@@ -802,12 +848,15 @@ class SyncForce2Vec:
             return rep(model, group, x[a0:r1], sg, step)[r0 - a0:]
         if self.rep_mode == "add":
             return rep(model, group, x, sg, step, mode="add", out=upd)
-        return rep(model, group, x, sg, step, mode="apply", upd=upd)
+        return rep(model, group, x, sg, step, mode="apply", upd=upd,
+                   **_next_kw(xg_next))
 
-    def _forces(self, x, xg, negs, walks, step, plain) -> torch.Tensor:
+    def _forces(self, x, xg, negs, walks, step, plain,
+                xg_next=None) -> torch.Tensor:
         """The iteration's update before the energy step: ``[n_pad, D]``
         attraction plus repulsion; with ``rep_mode`` ``apply`` X has taken
-        it already (the returned update is the attraction alone)."""
+        it already (the returned update is the attraction alone), and
+        ``xg_next``, where given, X's new rows."""
         if self._tp:
             att, rep = self._tp_forces(x, xg, negs, walks, step, plain)
         elif walks is not None:
@@ -827,26 +876,31 @@ class SyncForce2Vec:
                                                   accumulate=True)
             return upd
         if self.rep_mode in ("add", "apply"):  # in the launch
-            self._rank_repulsion(x, xg, negs, step, plain, upd=upd)
+            self._rank_repulsion(x, xg, negs, step, plain, upd=upd,
+                                 xg_next=xg_next)
             return upd
         return upd.add_(self._place_rows(
             self._rank_repulsion(x, xg, negs, step, plain)))
 
-    def _fused_iteration(self, x, xg, negs, step, plain) -> torch.Tensor:
+    def _fused_iteration(self, x, xg, negs, step, plain,
+                         xg_next=None) -> torch.Tensor:
         """The iteration as the fused pass (``fused_apply``): one
         ``ell_edge_apply`` launch over ``apply_table``, then with a hub one
         over ``owner_table``, its attraction the owners' ordered sums of
-        the first launch's partial rows.  Returns X, updated in place."""
+        the first launch's partial rows.  Returns X, updated in place (and
+        ``xg_next``, where given, its replica: the two launches apply every
+        row once)."""
         fk, hub = force_kernels, self._hub
         launch = fk.ell_edge_apply_plain if plain else fk.ell_edge_apply
         group = (1 if self.config.per_vertex_samples
                  else max(self.config.batch_size, 1))
         part = launch(self.model, x, xg, *self.apply_table, self.inv_deg,
-                      negs, group, step)
+                      negs, group, step, **_next_kw(xg_next))
         if hub is not None:
             launch(self.model, x, xg, *self.owner_table, self.inv_deg, negs,
                    group, step,
-                   upd=owner_sums(part[: hub.n_virtual], hub.owner_off))
+                   upd=owner_sums(part[: hub.n_virtual], hub.owner_off),
+                   **_next_kw(xg_next))
         return x
 
     def _replica(self, x: torch.Tensor) -> torch.Tensor:
@@ -865,14 +919,21 @@ class SyncForce2Vec:
         return x.to(gdt).to(x.dtype)
 
     def _iteration(self, x: torch.Tensor, negs: torch.Tensor,
-                   walks: Optional[torch.Tensor], step,
-                   plain: bool) -> torch.Tensor:
+                   walks: Optional[torch.Tensor], step, plain: bool,
+                   it: Optional[int] = None) -> torch.Tensor:
         """One iteration on X in place; ``step`` a float or the 0-d f32
-        step buffer (the same bits either way)."""
-        xg = self._replica(x)
+        step buffer (the same bits either way).  ``it``: the iteration of
+        a span with the carried replica, which gathers from
+        ``_replicas[it % k]`` and writes ``_replicas[(it + 1) % k]``; None
+        casts X (``_replica``)."""
+        if it is None:
+            xg, xg_next = self._replica(x), None
+        else:
+            k = self.replica_carry
+            xg, xg_next = self._replicas[it % k], self._replicas[(it + 1) % k]
         if self.fused_apply:
-            return self._fused_iteration(x, xg, negs, step, plain)
-        upd = self._forces(x, xg, negs, walks, step, plain)
+            return self._fused_iteration(x, xg, negs, step, plain, xg_next)
+        upd = self._forces(x, xg, negs, walks, step, plain, xg_next)
         if self.rep_mode == "apply":  # the repulsion launch applied X
             return x
         if self.model.update == "energy":
@@ -904,11 +965,56 @@ class SyncForce2Vec:
         self._step_buf.write(self._step(it))
         self._span_gen.manual_seed(iteration_seed(seed, it))
 
-    def _static_iteration(self, x: torch.Tensor) -> None:
+    def _static_iteration(self, x: torch.Tensor,
+                          parity: Optional[int] = None) -> None:
         """The iteration a graph span captures: the draws from the
-        re-seeded generator, the step from the step buffer."""
+        re-seeded generator, the step from the step buffer; with the
+        carried replica, one body a ``parity`` (the iteration mod
+        ``replica_carry``)."""
         negs, walks = self._draw(self._span_gen)
-        self._iteration(x, negs, walks, self._step_buf.tensor, plain=False)
+        self._iteration(x, negs, walks, self._step_buf.tensor, plain=False,
+                        it=parity)
+
+    def _carry_key(self, x: torch.Tensor, it: int):
+        """What a carried replica holds true at iteration ``it``: X's
+        version and the launches that write X so far; None for a tensor
+        that keeps no version (made under ``torch.inference_mode``)."""
+        try:
+            version = x._version
+        except RuntimeError:
+            return None
+        counts = force_kernels.launch_counts
+        return (version, it, counts["ell_edge_apply"],
+                counts["grouped_rep_force"])
+
+    def _start_span(self, x: torch.Tensor, it: int) -> None:
+        """Before a span from iteration ``it`` with the carried replica:
+        the replicas allocated (once: a graph holds their addresses), and
+        the one iteration ``it`` gathers from made ``x.to(gather_dtype)``
+        here, on the stream, unless the last span left it so on this X
+        (``_carry_key``; counter ``replica.casts``)."""
+        if self._replicas is None:
+            self._replicas = [
+                torch.empty((self.layout.n_pad, self.row_width),
+                            dtype=self._gdt, device=self.device)
+                for _ in range(self.replica_carry)]
+        # a span that raises leaves no carried replica
+        mark, self._carry_mark = self._carry_mark, None
+        key = self._carry_key(x, it)
+        self._span_cast = (mark is None or mark[0]() is not x or key is None
+                           or key != mark[1])
+        self._span_first = it
+        if self._span_cast:
+            self._replicas[it % self.replica_carry].copy_(x)
+            counter("replica.casts", 1)
+
+    def _end_span(self, x: torch.Tensor, it: int) -> None:
+        """After a span whose next iteration is ``it``: its iterations
+        but a first that ``_start_span`` cast for counted as carried
+        (``replica.carried``), and what the replica ``it`` gathers from
+        holds true."""
+        counter("replica.carried", it - self._span_first - self._span_cast)
+        self._carry_mark = (weakref.ref(x), self._carry_key(x, it))
 
     # -- public API ----------------------------------------------------------
 
@@ -926,7 +1032,9 @@ class SyncForce2Vec:
         ``plain=True`` computes the same iteration with the plain PyTorch
         versions of the kernels on ``x``'s device: the reference the
         kernels are checked against on the card.  The step is rounded to
-        X's dtype first, as the JAX package rounds it.
+        X's dtype first, as the JAX package rounds it.  The iteration
+        gathers from a fresh cast of X, and the next ``run_span`` casts
+        again (no carried replica outlives it).
         """
         want = (self.layout.n_pad, self.row_width)
         if tuple(x.shape) != want:
@@ -946,6 +1054,7 @@ class SyncForce2Vec:
             if tuple(walks.shape) != want:
                 raise ValueError(f"walks {tuple(walks.shape)} != {want}")
             walks = walks.to(torch.int32).contiguous()
+        self._carry_mark = None  # X changes uncarried
         # in the step buffer: the kernels read the step from device memory
         step = self._step_buf.write(
             round_to(self.lr if step is None else step, self._dtype))
@@ -976,12 +1085,18 @@ class SyncForce2Vec:
     def _run_span_eager(self, x: torch.Tensor, seed: int, num_iters: int,
                         iter_offset: int = 0) -> torch.Tensor:
         """``run_span`` as a Python loop of eager launches, each step a
-        float: the reference the graph is held against."""
-        gen = self._span_gen
+        float: the reference the graph is held against (with the carried
+        replica where the graph carries it)."""
+        gen, carry = self._span_gen, self.replica_carry and num_iters > 0
+        if carry:
+            self._start_span(x, iter_offset)
         for it in range(iter_offset, iter_offset + num_iters):
             gen.manual_seed(iteration_seed(seed, it))
             negs, walks = self._draw(gen)
-            self._iteration(x, negs, walks, self._step(it), plain=False)
+            self._iteration(x, negs, walks, self._step(it), plain=False,
+                            it=it if carry else None)
+        if carry:
+            self._end_span(x, iter_offset + num_iters)
         return x
 
     def train(self, iters: int = 1200, seed: int = 1,

@@ -24,7 +24,9 @@ walk model, ``walk.tables`` (its walk tables) in it, ``kernels.load`` (the
 kernel library's hash, build and load) with the counter
 ``kernels.nvcc_jobs``, and a CUDA-graph trainer's ``span.warmup`` (the
 eager iteration before a capture), ``span.capture`` and ``span.replay``
-(one a replayed iteration) with the counter ``span.replays``.
+(one a replayed iteration) with the counter ``span.replays``, and the
+sync trainer's carried replica's counters ``replica.carried`` and
+``replica.casts`` (``train/sync.py``).
 
 **Phase meters.**  ``Meter`` times the phases of an iteration on the
 device.  A phase on a card is timed by a pair of CUDA events on the
