@@ -195,61 +195,39 @@ path G, every width (``-dim`` any of 1 to ``force_kernels.KERNEL_MAX_DIM``,
     split-dim pair queued ahead of the device, beside their bounds and
     plain versions; the ``kernels`` line lists them under ``row_classes``.
 
-path H, the hot/cold gather split (``SyncForce2Vec(hot_rows=k)``), at the
-main path's configuration with the top n / 8 rows of the degree order hot:
-
-32. (H1) the split's two edge launches, each against its plain version
-    elementwise (tdist and sigmoid): the cold table storing every update
-    row, the hot table adding into its rows; adding equals ``out.add_``
-    of the stored result bit for bit; both timed beside bound and plain;
-33. (H2) the bound rejects the hot launch with each row's last slot
-    skipped, and the iteration bound an iteration without its hot launch;
-    one split iteration through the kernels and the plain versions, timed;
-34. (H3) one split iteration against the unsplit one (``-bs 1``
-    negatives in original id space): bf16 gathers < 1e-3, f32 gathers
-    within 1e-5 relative (1e-6 absolute);
-35. (H4) the dp = 2 slices of the split on this card, counted, put in
-    place against the single-card split iteration;
-36. (H5) 50 training iterations with exact launch counts (two edge
-    launches an iteration), X finite, edges closer than random pairs;
-37. (H6) main at 1,048,576 vertices (the bf16 replica 5.4x the L2),
-    unsplit and split with a hot suffix of the L2's size, queued, in
-    turns.
-
 path I, X held in bf16 (``TrainConfig(dtype="bfloat16")``, X its own
 gather table), at the main path's configuration:
 
-38. (I0) float64 X refused by name in the trainers' constructors, and a
+32. (I0) float64 X refused by name in the trainers' constructors, and a
     bf16 X beside an f32 gather table by the wrappers, with no launch;
     (I1) each kernel at bf16 X against its plain version elementwise,
     within 1e-5 of Σ|terms| plus half an ulp of the bf16 output: the edge
-    table launch storing (tdist) and adding (bit for bit ``out.add_`` of
-    the stored result), ``grouped_rep_force``, ``ell_sample_force``
+    table launch (tdist), ``grouped_rep_force``, ``ell_sample_force``
     storing and adding, the split-dim pair over main's tables on tp = 2
     halves, and sigmoid, fr, linlog and forceatlas on the widest bucket;
     the bound rejects the edge launch with each row's last slot skipped
     and with x_i read as zeros; each timed beside its bound and plain
     version;
-39. (I2) one iteration through the kernels and the plain versions: no
+33. (I2) one iteration through the kernels and the plain versions: no
     cast of X, no ``add_`` (the repulsion launch applies X += update +
     repulsion), each element within the bf16 roundings the
     two may each make their own way (one ulp each of the attraction, the
     repulsion, the update and X, and of each hub partial row); then
     against the f32-X iteration from the same X, its difference stated;
-40. (I3) 50 iterations on the main path and with ``-bs 1`` (exact launch
+34. (I3) 50 iterations on the main path and with ``-bs 1`` (exact launch
     counts, no cast) and 20 batch-schedule iterations, each with half the
     JAX package's distance gap at bf16 X;
-41. (I4) the vertex schedule at P = 1 against the sync iteration, its
+35. (I4) the vertex schedule at P = 1 against the sync iteration, its
     exchange bytes at 2 bytes an element (P = 1 and a P = 4 layout), and
     the dp = 2 slices on this card against one card;
-42. (I5) main queued with f32 X and with bf16 X in turns, at the bench
+36. (I5) main queued with f32 X and with bf16 X in turns, at the bench
     graph and at 1,048,576 vertices, and the batch schedule back to back.
 
 path J, ``grouped_rep_force``'s three output modes (``store``; ``add``
 into the update, as the layout family runs it; ``apply``, X += update +
 repulsion in place, the main path's and rwalk's last launch):
 
-43. (J1) at every row class (dims 2 to 1024) with f32 X (bf16 and f32
+37. (J1) at every row class (dims 2 to 1024) with f32 X (bf16 and f32
     samples) and bf16 X, tdist over every 256-row group: each mode against
     its exact composition from the plain terms, within SUM_RTOL (scaled
     above dim 128) of Σ|terms| plus half an ulp of each rounding the mode
@@ -260,7 +238,7 @@ repulsion in place, the main path's and rwalk's last launch):
     a launch holds (a launch a chunk, the f32 sums passed on) in each
     mode; every sample model's ``add`` and ``apply`` bit for bit at the
     bench dim, and ``apply`` with an energy model refused;
-44. (J3) one iteration of main (f32 X gathering from itself, where no
+38. (J3) one iteration of main (f32 X gathering from itself, where no
     fused pass runs, and bf16 X), rwalk and linlog in the
     mode the trainer derives (apply, add for linlog; store under dp): the
     launch against the store launch and the ``add_``s composed from copies
@@ -268,9 +246,9 @@ repulsion in place, the main path's and rwalk's last launch):
     ``add_``, and no launch count, torch operation or device kernel
     follows the repulsion (the profiler's kernels, recorded in a fresh
     process: the full run takes path J as ``--path J``);
-45. (J4) 50 iterations of main (f32 and bf16 X) and rwalk with exact
+39. (J4) 50 iterations of main (f32 and bf16 X) and rwalk with exact
     launch counts against the main path's and path I's margins;
-46. (J5) each mode queued and back to back beside its bound and plain
+40. (J5) each mode queued and back to back beside its bound and plain
     version at the bench shape; ``store`` and ``apply`` queued at every
     row class; main queued with the store launch and the ``add_``s in the
     apply launch's place and with the trainer's ``apply``, in turns.
@@ -280,7 +258,7 @@ table) and the f16 gather replica of an f32 X (``--gather-dtype
 float16``), at the main path's configuration (after path I in the full
 run):
 
-47. (K0) the pairs the kernels lack refused by the wrappers by name (an
+41. (K0) the pairs the kernels lack refused by the wrappers by name (an
     f16 X beside a bf16 or f32 table, a bf16 X beside an f16 one), with
     no launch; (K1) path I1 at f16 X (each kernel against its plain
     version within 1e-5 of Σ|terms| plus half an f16 ulp of the output,
@@ -290,15 +268,15 @@ run):
     faults at dim 100), each f16-X class timed as G4 times it, and
     ``grouped_rep_force``'s three modes at every row class with f16 X
     and with f16 samples beside an f32 X, as J1 holds them;
-48. (K2) one f16-X iteration against its plain version as I2 holds it (no
+42. (K2) one f16-X iteration against its plain version as I2 holds it (no
     cast of X, no ``add_``), and one f32-X iteration with the f16 replica
     (one cast of X, to the replica) within 1e-3;
-49. (K3) path I3 at f16 X, and 50 iterations of main with the f16
+43. (K3) path I3 at f16 X, and 50 iterations of main with the f16
     replica, each with half the JAX package's gap
     (``scripts/jax_quality_reference.py``: ``tdist_x_f16``,
     ``tdist_per_vertex_x_f16``, ``tdist_batch_x_f16``, ``tdist_g_f16``);
-50. (K4) path I4 at f16 X;
-51. (K5) main queued with f32 X (the bf16 replica), bf16 X, f16 X and
+44. (K4) path I4 at f16 X;
+45. (K5) main queued with f32 X (the bf16 replica), bf16 X, f16 X and
     f32 X with the f16 replica, in turns, at the bench graph and at
     1,048,576 vertices.
 
@@ -307,12 +285,12 @@ iteration captured once per X and replayed, the step and the draws in
 device buffers; ``train/graph.py``), in a fresh process (``--path L``),
 after path J in the full run:
 
-52. (L1) every single-card configuration of the three schedules: the
+46. (L1) every single-card configuration of the three schedules: the
     sync schedule's main path with f32, bf16 and f16 X and with the f16
     replica, ``-bs 1``, rwalk, sigmoid, the table σ, fr, linlog,
-    forceatlas, dim 100 and the hot/cold split at the bench graph; the
-    vertex schedule at P = 1 (``shared``, ``pool``, rwalk, ``halo_stale``
-    with its two tables, bf16 X) at the bench graph; the batch schedule at
+    forceatlas and dim 100 at the bench graph; the vertex schedule at
+    P = 1 (``shared``, ``pool``, rwalk, ``halo_stale`` with its two
+    tables, bf16 X) at the bench graph; the batch schedule at
     the CLI's default (bench graph) and with bf16 and f16 X, ``-bs 1``,
     sigmoid, rwalk and the layout family on a small graph, and
     tdist_exact on a smaller one.  Each, in torch's default mode (and the
@@ -324,11 +302,11 @@ after path J in the full run:
     against the first eager run bit for bit (``halo_stale``'s spans
     against the eager loop in the same spans: each primes its first
     iteration);
-53. (L2) planted faults that the graph's bound must catch: the step
+47. (L2) planted faults that the graph's bound must catch: the step
     buffer written once and never refreshed (fr, whose step decays every
     iteration; the sync, batch and vertex schedules) and the negatives
     drawn once and never redrawn (tdist; sync and batch);
-54. (L3) main with f32, bf16 and f16 X, rwalk, the vertex schedule at
+48. (L3) main with f32, bf16 and f16 X, rwalk, the vertex schedule at
     P = 1 and the batch schedule at the bench graph, the graph against
     the eager loop in turns: back to
     back and queued ms per iteration, host enqueue ms, the host's launch
@@ -342,7 +320,7 @@ f32 X beside a bf16 or f16 replica; the main path, paths A and D, G2's
 tdist runs, K3's f16 replica and path L's runs of those configurations
 run it), after path K in the full run:
 
-55. (M1) 50 iterations at dims 8, 64, 100, 128 and 256, bf16 and f16
+49. (M1) 50 iterations at dims 8, 64, 100, 128 and 256, bf16 and f16
     replicas, group-shared and per-vertex negatives: each iteration the
     trainer's fused iteration against the separate passes composed from
     the kernel wrappers (``separate_iteration``) and against itself
@@ -351,7 +329,7 @@ run it), after path K in the full run:
     class, not X's) within the sound runs' ``upd_err`` of 5.6e-6
     (``PERF.md`` §9.2); the same bits run to run; its launches an
     iteration (a second over the hub's owner rows);
-56. (M2) at dim 128 on the bench graph and at 1,048,576 vertices, both
+50. (M2) at dim 128 on the bench graph and at 1,048,576 vertices, both
     sample modes: the fused launch queued beside the edge launch and the
     repulsion's launches it replaces, and the fused iteration against
     ``separate_iteration`` in turns.
@@ -360,7 +338,7 @@ Path N (the carried replica, ``SyncForce2Vec.replica_carry``: the launch
 that writes X also writes the replica the next iteration gathers from, so
 no cast of X runs in an iteration), after path M in the full run:
 
-57. (N1) at the bench graph and at com-Youtube's vertex count, for the
+51. (N1) at the bench graph and at com-Youtube's vertex count, for the
     sync trainer, ``-bs 1`` and rwalk: N_ITERS iterations through
     ``run_span`` (one span: a capture and replays; one span an iteration,
     as the benchmark calls it; two spans with X rewritten in place between
@@ -368,13 +346,13 @@ no cast of X runs in an iteration), after path M in the full run:
     iteration, bit for bit; the replica the next iteration reads equal to
     ``x.to(gather_dtype)``; the counters: one cast a new X (and one a
     rewrite), one carried iteration a replay;
-58. (N2) at com-Youtube's vertex count: the launches that write X queued
+52. (N2) at com-Youtube's vertex count: the launches that write X queued
     with and without the replica's store, beside the cast they replace.
 
 ``python3 chip_smoke.py --path F`` builds the kernels and runs path F
 alone (a check of the multi-card schedules on a host with several cards,
 where F4 captures every multi-rank runner);
-``--path G`` runs path G alone, ``--path H`` path H, ``--path I`` path I,
+``--path G`` runs path G alone, ``--path I`` path I,
 ``--path J`` path J, ``--path K`` path K, ``--path L`` path L, ``--path
 M`` path M, ``--path N`` path N.
 
@@ -574,14 +552,10 @@ G_TERMS = 1 << 26
 # launch's shared memory (dims 512 and up)
 G_MANY_SAMPLES = 40
 G_CLI_ITERS = 5
-# path H: the hot suffix is the top n / H_HOT_DIV rows of the degree order;
-# the dp slices run on one card; the big graph's vertices (its bf16
-# replica 268 MB, 5.4x the H100's 50 MB L2); the f32 split iteration's
-# bound against the unsplit one (the JAX package's own for its split)
-H_HOT_DIV = 8
-H_DP = 2
-H_BIG_N = 1 << 20
-SPLIT_F32_RTOL, SPLIT_F32_ATOL = 1e-5, 1e-6
+# the dp slices that run on one card; the big graph's vertices (its bf16
+# replica 268 MB, 5.4x the H100's 50 MB L2)
+SLICE_DP = 2
+BIG_N = 1 << 20
 # Path I: X itself held in bf16 (no separate gather replica), and the JAX
 # package's distance gaps at bf16 X on the CPU after TRAIN_ITERS sync
 # iterations (tdist_x_bf16, tdist_per_vertex_x_bf16) and CLI_ITERS batch
@@ -662,22 +636,21 @@ N_CONFIGS = (("sync", {}, 2), ("-bs 1", dict(per_vertex_samples=True), 2),
 # mode, as it was while its default mode could not be
 L_ITERS = 20
 L_SPANS = (7, 7, 6)
-# (what, TrainConfig over the bench's, hot rows as a share of n): every
-# single-card sync configuration
+# (what, TrainConfig over the bench's): every single-card sync
+# configuration
 L_SYNC = (
-    ("main f32 X", {}, 0),
-    ("main bf16 X", dict(dtype="bfloat16", gather_dtype=None), 0),
-    ("main f16 X", dict(dtype="float16", gather_dtype=None), 0),
-    ("main f16 replica", dict(gather_dtype="float16"), 0),
-    ("-bs 1", dict(per_vertex_samples=True), 0),
-    ("rwalk", dict(model="rwalk"), 0),
-    ("sigmoid", dict(model="sigmoid"), 0),
-    ("sigmoid table", dict(model="sigmoid", sm_table=True), 0),
-    ("fr", dict(model="fr"), 0),
-    ("linlog", dict(model="linlog"), 0),
-    ("forceatlas", dict(model="forceatlas"), 0),
-    ("dim 100", dict(dim=100), 0),
-    ("hot rows n/8", {}, H_HOT_DIV),
+    ("main f32 X", {}),
+    ("main bf16 X", dict(dtype="bfloat16", gather_dtype=None)),
+    ("main f16 X", dict(dtype="float16", gather_dtype=None)),
+    ("main f16 replica", dict(gather_dtype="float16")),
+    ("-bs 1", dict(per_vertex_samples=True)),
+    ("rwalk", dict(model="rwalk")),
+    ("sigmoid", dict(model="sigmoid")),
+    ("sigmoid table", dict(model="sigmoid", sm_table=True)),
+    ("fr", dict(model="fr")),
+    ("linlog", dict(model="linlog")),
+    ("forceatlas", dict(model="forceatlas")),
+    ("dim 100", dict(dim=100)),
 )
 # (what, TrainConfig, graph): the batch trainer, the CLI's default at the
 # bench graph, every other model and mode on SMALL_GRAPH, tdist_exact on
@@ -3878,290 +3851,14 @@ def widths_path(graph, dev, card):
     return counts, classes
 
 
-# -- path H: the hot/cold gather split -----------------------------------------
-
-
-def split_table_checks(model, x, xg, fv, step, what):
-    """The split's two edge launches as the path runs them, each against
-    its plain per-entry terms: the cold table storing (every update row;
-    ``check_table``), the hot table adding onto a zero base (its entries'
-    rows, the dot models to their terms' interval, ``held_ratio(dot=True)``;
-    elsewhere the base must stay 0).  Returns ((cold max |err|,
-    ratio), (hot max |err|, ratio), the hot launch's output)."""
-    cold = check_table(model, x, xg, fv.edge_table, fv.inv_deg, step,
-                       f"{what} cold")
-    t = fv.hot_table
-    got = torch.zeros((t.out_rows, x.shape[1]), device=x.device)
-    fk.ell_edge_force_table(model, x, xg, t, fv.inv_deg, step, out=got,
-                            accumulate=True)
-    err = ratio = 0.0
-    touched = torch.zeros(t.out_rows, dtype=torch.bool, device=x.device)
-    for nbr, deg, xi_row, ob in t.parts():
-        args = (x, xg, nbr, deg, xi_row, fv.inv_deg, step)
-        part = got[ob: ob + nbr.shape[0]]
-        err = max(err, max_err(part, fk.ell_edge_force_terms(
-            model, *args).sum(dim=1)))
-        # a row's few hot slots leave sigmoid's 1 - σ(a) uncancelled by
-        # other terms: the dot models are held to the interval their terms
-        # span under the dot's rounding, as on path G
-        ratio = max(ratio, held_ratio(
-            part, lambda m: fk.ell_edge_force_terms(m, *args), model,
-            dot=True))
-        touched[ob: ob + nbr.shape[0]] = True
-    check(ratio <= 1.0, f"ell_edge_force_table {what} hot (adding): |err| "
-                        f"exceeds {SUM_RTOL} x sum |terms| by {ratio:.3f}x")
-    check(bool((got[~touched] == 0).all()),
-          f"the hot launch ({what}) wrote rows outside its entries")
-    return cold, (err, ratio), got
-
-
-def edge_accumulate_check(model, x, xg, table, invd, step, what):
-    """``ell_edge_force_table(..., out=base, accumulate=True)`` equals
-    ``base.add_`` of the same launch stored onto zeros, bit for bit (rows
-    outside a partial table's entries: base + 0)."""
-    base = torch.randn((table.out_rows, x.shape[1]), device=x.device,
-                       generator=torch.Generator(x.device).manual_seed(23)
-                       ).to(x.dtype)
-    got = fk.ell_edge_force_table(model, x, xg, table, invd, step,
-                                  out=base.clone(), accumulate=True)
-    want = base.add_(fk.ell_edge_force_table(
-        model, x, xg, table, invd, step, out=torch.zeros_like(base)))
-    check(torch.equal(got, want), f"ell_edge_force_table {what}: "
-                                  "accumulate=True differs from out.add_")
-
-
-def hot_last_slot_skipped_ratio(model, x, xg, table, invd, step, got):
-    """Bound ratio of the hot launch's output (``got``, on a zero base)
-    against a faulty plain version that skips each row's last hot slot;
-    must be above 1."""
-    worst = 0.0
-    for nbr, deg, xi_row, ob in table.parts():
-        terms = fk.ell_edge_force_terms(model, x, xg, nbr,
-                                        (deg - 1).clamp(min=0), xi_row, invd,
-                                        step)
-        worst = max(worst, bound_ratio(got[ob: ob + nbr.shape[0]], terms))
-    return worst
-
-
-def split_launch_times(fv, x, xg, card) -> dict:
-    """The two edge launches queued ahead of the device and back to back,
-    each beside its bound and plain version: the cold table storing, the
-    hot table adding into the cold's output."""
-    model, step = fv.model, fv.lr
-    out = fk.ell_edge_force_table(model, x, xg, fv.edge_table, fv.inv_deg,
-                                  step)
-    rec = {}
-    for name, table, acc in (("cold", fv.edge_table, False),
-                             ("hot", fv.hot_table, True)):
-        args = (model, x, xg, table, fv.inv_deg, step)
-        kw = dict(out=out, accumulate=acc)
-        km = cuda_ms(lambda: fk.ell_edge_force_table(*args, **kw), reps=20)
-        qm = queued_device_ms(lambda: fk.ell_edge_force_table(*args, **kw),
-                              reps=20)
-        pm = cuda_ms(lambda: fk.ell_edge_force_table_plain(*args, **kw),
-                     reps=3)
-        nbytes, terms = ell_work([p[:3] for p in table.parts()], x, xg, True,
-                                 reads_out=acc)
-        b_ms, by = bound_ms(nbytes, terms * term_flops(model, "edge",
-                                                       x.shape[1]))
-        rec[name] = dict(ms=km, queued_ms=qm, plain_ms=pm, bound_ms=b_ms,
-                         bound_by=by, slots=terms,
-                         entries=len(table.entries))
-        say(f"split {name} launch ({'adding' if acc else 'storing'}, "
-            f"{len(table.entries)} entries, {terms} real slots): kernel_ms="
-            f"{km:.4f} queued={qm:.4f} ({terms / qm / 1e6:.2f} G rows/s) "
-            f"plain_ms={pm:.4f} bound_ms={b_ms:.4f} ({by}: "
-            f"{nbytes / 1e6:.1f} MB) [{card}]")
-    return rec
-
-
-def split_vs_unsplit_phase(graph, dev, card):
-    """One split iteration against the unsplit one (per-vertex negatives
-    in original id space, which the two relabelings both take), with bf16
-    gathers (max |ΔX| < ITER_TOL) and f32 gathers (within SPLIT_F32_RTOL
-    relative, SPLIT_F32_ATOL absolute)."""
-    rng = np.random.default_rng(13)
-    x_host = torch.as_tensor(
-        rng.random((graph.n, BENCH_CONFIG.dim), dtype=np.float32) * 2 - 1,
-        device=dev)
-    pv = rng.integers(0, graph.n - 1, size=(graph.n, BENCH_CONFIG.ns))
-    out = {}
-    for gather in ("bfloat16", None):
-        cfg = dataclasses.replace(BENCH_CONFIG, per_vertex_samples=True,
-                                  gather_dtype=gather)
-        res = []
-        for hot in (0, graph.n // H_HOT_DIV):
-            fv = SyncForce2Vec(graph, cfg, MIN_WIDTH, HUB_WIDTH,
-                               hot_rows=hot, device=dev)
-            lay = fv.layout
-            negs = np.zeros((lay.n_pad, cfg.ns), np.int32)
-            negs[: graph.n] = lay.inv_perm[pv[lay.perm]]
-            x = fv.pad_embedding(x_host)
-            fv.run_iteration(x, negs)
-            res.append(fv.unpad_embedding(x))
-        d = (res[1] - res[0]).abs()
-        e = float(d.max())
-        rel = float((d / res[0].abs().clamp(min=1e-30)).max())
-        say(f"split vs unsplit iteration ({gather or 'float32'} gathers, "
-            f"-bs 1): max |dX| {e:.3e}, max relative {rel:.3e} [{card}]")
-        if gather:
-            check(e < ITER_TOL, f"the split iteration differs from the "
-                                f"unsplit one by {e:.3e}")
-        else:
-            check(bool((d <= SPLIT_F32_RTOL * res[0].abs()
-                        + SPLIT_F32_ATOL).all()),
-                  "the f32 split iteration differs from the unsplit one")
-        out[gather or "float32"] = e
-    return out
-
-
-def split_dp_phase(graph, dev, card, one, x, negs_t):
-    """The split under dp = H_DP on this one card: each rank's runner
-    (``SpmdAxes(n_dp=H_DP, dp_index=k)``, no group) makes its cold and hot
-    launches and its repulsion, counted; the slices concatenated in rank
-    order (as ``all_gather_into_tensor`` would) and put in place by the
-    runner's permutation, against the single-card split iteration."""
-    cfg, step = BENCH_CONFIG, one.lr
-    want = one.unpad_embedding(one.run_iteration(x.clone(), negs_t))
-    xg = x.to(torch.bfloat16)
-    ranks = [SyncForce2Vec(graph, cfg, MIN_WIDTH, HUB_WIDTH,
-                           hot_rows=one.hot_rows,
-                           spmd=SpmdAxes(n_dp=H_DP, dp_index=k), device=dev)
-             for k in range(H_DP)]
-    check(all(np.array_equal(r.layout.perm, one.layout.perm) for r in ranks),
-          "the dp runners' split layout differs from the single card's")
-    reset_counts()
-    outs = [r._edge_table_launch(x, xg, step, False) for r in ranks]
-    reps = [r._rank_repulsion(x, xg, negs_t, step, False) for r in ranks]
-    torch.cuda.synchronize(dev)
-    counts = read_counts()
-    check(counts == {**{k: 0 for k in counts},
-                     "ell_edge_force": 2 * H_DP, "grouped_rep_force": H_DP},
-          f"the dp split slices' launches {counts}")
-    g = torch.cat(outs + [torch.zeros_like(outs[0][:1])])
-    new = x + ranks[0]._dp_place(g).add_(torch.cat(reps))
-    e = max_err(one.unpad_embedding(new), want)
-    say(f"H dp={H_DP} split slices on one card: launches {counts}; the "
-        f"slices put in place vs the single-card split iteration max |dX| "
-        f"{e:.3e} [{card}]")
-    check(e < ITER_TOL, "the dp split update differs from one card's")
-    return counts
+# -- path I: X held in bf16 ---------------------------------------------------
 
 
 @functools.lru_cache(maxsize=None)
 def big_graph():
-    """``synth_powerlaw_graph`` at H_BIG_N vertices (its bf16 replica past
-    the L2), built once for paths H and I."""
-    return synth_powerlaw_graph(n=H_BIG_N)
-
-
-def split_big_graph_phase(dev, card):
-    """Main at H_BIG_N vertices (its bf16 replica past the L2), unsplit and
-    split with a hot suffix of the L2's size, queued ahead of the device in
-    turns (unsplit, split, split, unsplit); returns the record."""
-    graph = big_graph()
-    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
-    hot = l2 // (BENCH_CONFIG.dim * 2)
-    runners = {h: SyncForce2Vec(graph, BENCH_CONFIG, MIN_WIDTH, HUB_WIDTH,
-                                hot_rows=h, device=dev) for h in (0, hot)}
-    ng = -(-runners[0].layout.n_pad // BENCH_CONFIG.batch_size)
-    negs = torch.randint(0, graph.n - 1, (ng, BENCH_CONFIG.ns),
-                         dtype=torch.int32, device=dev,
-                         generator=torch.Generator(dev).manual_seed(3))
-    xs = {h: fv.init_embedding(seed=1) for h, fv in runners.items()}
-    times = {0: [], hot: []}
-    for h in (0, hot, hot, 0):
-        fv = runners[h]
-        times[h].append(queued_device_ms(
-            lambda: fv.run_iteration(xs[h], negs), reps=10))
-    stats = runners[hot].split_stats()
-    say(f"H n={graph.n} (bf16 replica {graph.n * BENCH_CONFIG.dim * 2} "
-        f"bytes, L2 {l2}): main queued ms/iteration unsplit {times[0]}, "
-        f"split at hot_rows={hot} {times[hot]}; split_stats "
-        f"{json.dumps(stats)} [{card}]")
-    for h, x in xs.items():
-        check(bool(torch.isfinite(x).all()), f"n={graph.n} hot_rows={h}: "
-                                             "X is not finite")
-    return {"n": graph.n, "hot_rows": hot, "unsplit_queued_ms": times[0],
-            "split_queued_ms": times[hot], "hot_fraction":
-            stats["hot_fraction"]}
-
-
-def split_path(graph, dev, card, big=True):
-    """Path H: the hot/cold gather split at the main path's configuration
-    with the top n / H_HOT_DIV rows hot.  Returns (the edge kernel's split
-    records, the 50 iterations' launch counts)."""
-    t0 = time.perf_counter()
-    fv = SyncForce2Vec(graph, BENCH_CONFIG, MIN_WIDTH, HUB_WIDTH,
-                       hot_rows=graph.n // H_HOT_DIV, device=dev)
-    stats = fv.split_stats()
-    say(f"H split runner built in {time.perf_counter() - t0:.1f} s: "
-        f"split_stats {json.dumps(stats)}; cold table "
-        f"{len(fv.edge_table.entries)} entries, hot table "
-        f"{len(fv.hot_table.entries)} entries over "
-        f"{fv.hot_table.deg.shape[0]} rows")
-    check(fv.layout.hot_start == graph.n - graph.n // H_HOT_DIV,
-          "the split layout's hot suffix")
-    x0 = fv.init_embedding(seed=1)
-    xg = x0.to(torch.bfloat16)
-    errs = {}
-    for name in ("tdist", "sigmoid"):
-        model = get_model(name)
-        step = fv.lr if name == "tdist" else 0.02
-        cold, hot, got = split_table_checks(model, x0, xg, fv, step, name)
-        edge_accumulate_check(model, x0, xg, fv.hot_table, fv.inv_deg, step,
-                              f"{name} hot")
-        say(f"H {name}: cold launch (storing) max_abs_err={cold[0]:.3e} "
-            f"bound_ratio={cold[1]:.4f}; hot launch (adding) max_abs_err="
-            f"{hot[0]:.3e} bound_ratio={hot[1]:.4f}; accumulate=True bit for "
-            f"bit out.add_")
-        if name == "tdist":
-            errs = {"cold": cold[0], "hot": hot[0]}
-            check(max(errs.values()) <= EDGE_TOL,
-                  f"split launches: max |err| {errs} > {EDGE_TOL}")
-            skipped = hot_last_slot_skipped_ratio(model, x0, xg,
-                                                  fv.hot_table, fv.inv_deg,
-                                                  step, got)
-    rec = split_launch_times(fv, x0, xg, card)
-    for k in rec:
-        rec[k]["max_abs_err"] = errs[k]
-
-    ng = -(-fv.layout.n_pad // BENCH_CONFIG.batch_size)
-    negs = np.random.default_rng(7).integers(
-        0, graph.n - 1, size=(ng, BENCH_CONFIG.ns)).astype(np.int32)
-    want = fv.run_iteration(x0.clone(), negs)
-    hot_table, fv.hot_table = fv.hot_table, None
-    dropped = max_err(fv.run_iteration(x0.clone(), negs), want)
-    fv.hot_table = hot_table
-    say(f"planted faults: hot launch with each row's last slot skipped "
-        f"bound_ratio={skipped:.2f} (must be > 1); the hot launch dropped: "
-        f"max |dX| {dropped:.3e} from the split iteration (must be >= "
-        f"{ITER_TOL})")
-    check(skipped > 1.0, "the bound passed a hot launch that skips each "
-                         "row's last slot")
-    check(dropped >= ITER_TOL, "an iteration without its hot launch passed "
-                               "the iteration bound")
-    # none: the hot launch adds in the kernel, the repulsion launch
-    # applies X += update + repulsion
-    iter_ms, iter_plain_ms, q_ms = iteration_phase(fv, x0, card, negs,
-                                                   adds=0)
-    rec["iteration_queued_ms"] = q_ms
-    say(f"H split ms_per_iteration kernels={iter_ms:.4f} plain="
-        f"{iter_plain_ms:.4f} queued={q_ms:.4f} [{card}]")
-    rec["vs_unsplit_max_dx"] = split_vs_unsplit_phase(graph, dev, card)
-    split_dp_phase(graph, dev, card, fv, x0, torch.as_tensor(negs,
-                                                             device=dev))
-    emb, counts = train_phase(fv, {
-        "ell_edge_force": 2 * TRAIN_ITERS, "grouped_rep_force": TRAIN_ITERS,
-        "ell_sample_force": 0}, card)
-    distance_gap_check(graph, emb, QUALITY_MARGIN, "split")
-    rec["hot_fraction"] = stats["hot_fraction"]
-    if big:
-        rec["big_graph"] = split_big_graph_phase(dev, card)
-    return rec, counts
-
-
-# -- path I: X held in bf16 ---------------------------------------------------
+    """``synth_powerlaw_graph`` at BIG_N vertices (its bf16 replica past
+    the L2), built once for the paths that time it."""
+    return synth_powerlaw_graph(n=BIG_N)
 
 
 def x_bf16_fault_ratios(model, x, table, invd, step, got):
@@ -4221,9 +3918,8 @@ def x_bf16_kernels_phase(fv, x, negs_t, card, tag="I1"):
     bench shapes, on X and the tables it gathers from itself, against its
     plain version elementwise (1e-5 of Σ|terms| plus half an ulp of the
     output):
-    the edge table launch storing (tdist; sigmoid, fr, linlog and
-    forceatlas on the widest bucket) and adding (bit for bit ``out.add_``
-    of the stored result), ``grouped_rep_force``, ``ell_sample_force``
+    the edge table launch (tdist; sigmoid, fr, linlog and forceatlas on
+    the widest bucket), ``grouped_rep_force``, ``ell_sample_force``
     adding, and the split-dim pair; two planted faults; each timed beside
     its bound and plain version.  Returns {kernel: record}."""
     model, step = fv.model, round_to(fv.lr, x.dtype)
@@ -4233,7 +3929,6 @@ def x_bf16_kernels_phase(fv, x, negs_t, card, tag="I1"):
                                                   "and inv_deg in 2 bytes")
     rec = {}
     e, ratio = check_table(model, x, x, t, invd, step, f"{xt} X tdist")
-    edge_accumulate_check(model, x, x, t, invd, step, f"{xt} X")
     got = fk.ell_edge_force_table(model, x, x, t, invd, step)
     check(got.dtype == x.dtype, f"the edge launch wrote {got.dtype}")
     skip, zero = x_bf16_fault_ratios(model, x, t, invd, step, got)
@@ -4484,23 +4179,24 @@ def x_bf16_vertex_phase(graph, dev, card, fv, x0, negs_t, tag="I4"):
 
     step = round_to(fv.lr, x0.dtype)
     ranks = [SyncForce2Vec(graph, cfg, MIN_WIDTH, HUB_WIDTH,
-                           spmd=SpmdAxes(n_dp=H_DP, dp_index=k), device=dev)
-             for k in range(H_DP)]
+                           spmd=SpmdAxes(n_dp=SLICE_DP, dp_index=k),
+                           device=dev)
+             for k in range(SLICE_DP)]
     reset_counts()
     outs = [r._edge_table_launch(x0, x0, step, False) for r in ranks]
     reps = [r._rank_repulsion(x0, x0, negs_t, step, False) for r in ranks]
     torch.cuda.synchronize(dev)
     counts = read_counts()
-    check(counts == {**{k: 0 for k in counts}, "ell_edge_force": H_DP,
-                     "grouped_rep_force": H_DP},
+    check(counts == {**{k: 0 for k in counts}, "ell_edge_force": SLICE_DP,
+                     "grouped_rep_force": SLICE_DP},
           f"the {xt} dp slices' launches {counts}")
     g = torch.cat(outs + [torch.zeros_like(outs[0][:1])])
     new = x0 + ranks[0]._dp_place(g).add_(torch.cat(reps))
     one = fv.run_iteration(x0.clone(), negs_t)
     ratio = ulp_ratio(new, one, rounding_bound(fv, x0, negs_t))
-    say(f"{tag} dp={H_DP} slices at {xt} X on one card: launches {counts}; "
-        f"put in place vs one card max |dX| {max_err(new, one):.3e}, "
-        f"rounding ratio {ratio:.4f} [{card}]")
+    say(f"{tag} dp={SLICE_DP} slices at {xt} X on one card: launches "
+        f"{counts}; put in place vs one card max |dX| "
+        f"{max_err(new, one):.3e}, rounding ratio {ratio:.4f} [{card}]")
     check(ratio <= 1.0, f"the {xt} dp slices' update differs from one "
                         "card's")
     return counts
@@ -4509,7 +4205,7 @@ def x_bf16_vertex_phase(graph, dev, card, fv, x0, negs_t, tag="I4"):
 def x_bf16_timing_phase(graph, dev, card):
     """I5: main queued ahead of the device with f32 X (bf16 gathers) and
     with bf16 X, in turns (f32, bf16, bf16, f32), at the bench graph and
-    at H_BIG_N vertices; the batch schedule at f32 and bf16 X, back to
+    at BIG_N vertices; the batch schedule at f32 and bf16 X, back to
     back, in turns.  Returns the record."""
     out = {}
     for g in (graph, big_graph()):
@@ -4708,7 +4404,7 @@ def x_f16_replica_phase(graph, dev, card, x0, negs_t):
 def x_f16_timing_phase(graph, dev, card):
     """K5: main queued ahead of the device with f32 X (the bench's bf16
     replica), bf16 X, f16 X and f32 X with the f16 replica, in turns (each
-    in that order, then in reverse), at the bench graph and at H_BIG_N
+    in that order, then in reverse), at the bench graph and at BIG_N
     vertices.  Returns {n: {config: [ms, ms]}}."""
     configs = {"f32 X": BENCH_CONFIG, "bf16 X": I_CONFIG, "f16 X": K_CONFIG,
                "f32 X f16 replica": K_REPLICA_CONFIG}
@@ -5819,10 +5515,9 @@ def graph_path(graph, dev, card):
     graphs = {"bench": graph, "small": small,
               "exact": synth_powerlaw_graph(**EXACT_GRAPH)}
     errs, rec, total = [], {"configs": {}, "timing": {}}, {}
-    for what, kw, hot_div in L_SYNC:
+    for what, kw in L_SYNC:
         fv = SyncForce2Vec(graph, dataclasses.replace(BENCH_CONFIG, **kw),
-                           MIN_WIDTH, HUB_WIDTH, device=dev,
-                           hot_rows=graph.n // hot_div if hot_div else 0)
+                           MIN_WIDTH, HUB_WIDTH, device=dev)
         r = rec["configs"][what] = l_check(fv, what, errs, card)
         add_counts(total, r["launches"])
         if what in L_TIMED:
@@ -6003,15 +5698,6 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
-    if sys.argv[1:] == ["--path", "H"]:
-        t0 = time.perf_counter()
-        split, counts = split_path(graph, dev, card)
-        say(f"path H (hot/cold split): {time.perf_counter() - t0:.1f} s")
-        say(json.dumps({"path_H_launches": counts, "split": split}))
-        say(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}))
-        return 0
     if sys.argv[1:] == ["--path", "G"]:
         t0 = time.perf_counter()
         counts, classes = widths_path(graph, dev, card)
@@ -6065,9 +5751,6 @@ def main() -> int:
     counts_widths, classes = widths_path(graph, dev, card)
     say(f"path G (every width): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    edge["split"], counts_split = split_path(graph, dev, card)
-    say(f"path H (hot/cold split): {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
     x_bf16, counts_bf16, x_bf16_timing = x_bf16_path(graph, dev, card)
     say(f"path I (bf16 X): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -6101,7 +5784,7 @@ def main() -> int:
              "rwalk": counts_rw, "probes": counts_probes,
              "file": counts_file, "cli": counts_cli,
              "vertex": counts_vertex, "dp": counts_dp, "tp": counts_tp,
-             "widths": counts_widths, "split": counts_split,
+             "widths": counts_widths,
              "x_bf16": counts_bf16, "x_f16": counts_f16,
              "rep_modes": counts_modes, "graph": counts_graph,
              "fused": counts_fused, "carry": counts_carry}

@@ -52,10 +52,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # x, xg, xg_dtype, x_dtype (DType codes; x, invd and out in x's),
     # nbr, deg, xi_row, invd, sm_table, step (a device f32 scalar), out,
-    # accumulate, table (host [n_entries, 5] int64), n_entries, dim, model,
-    # stream
-    "f2v_ell_edge_force": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
-                           _P, _I, _I, _I, _P),
+    # table (host [n_entries, 5] int64), n_entries, dim, model, stream
+    "f2v_ell_edge_force": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _P),
     # xi, sg, sg_dtype, xi_dtype (xi, out and upd in xi's), sm_table,
     # step (a device f32 scalar), out, upd, part (f32 scratch of a chunked
     # sum), xg_next (apply: the next replica, or null), xg_next_dtype, mode
@@ -79,10 +78,10 @@ _SIGNATURES = {
     "f2v_tp_pair_partial": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                             _P),
     # x, xg, xg_dtype, x_dtype (x, invd and out in x's), nbr, deg,
-    # xi_row, invd, sm_table, a, step (a device f32 scalar), out,
-    # accumulate, table, n_entries, dim, kind, model, stream
-    "f2v_tp_pair_force": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                          _P, _I, _I, _I, _I, _P),
+    # xi_row, invd, sm_table, a, step (a device f32 scalar), out, table,
+    # n_entries, dim, kind, model, stream
+    "f2v_tp_pair_force": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _P),
     # r, db, pool, walks, rows, steps, stream
     "f2v_walk_steps": (_P, _P, _P, _P, _I, _I, _P),
     # the benchmark probes (probe_kernels.py)

@@ -8,7 +8,7 @@
 // with att and rep each summed in f32 in slot order and rounded to X's
 // type, and att + rep rounded once more: the bits of the edge kernel's
 // store, then grouped_rep_force.cu's `apply` (or ell_sample_force.cu's
-// accumulate followed by `x.add_(upd)`).  A storing entry writes its rows'
+// add into the update followed by `x.add_(upd)`).  A storing entry writes its rows'
 // attraction sums into out, as ell_edge_force.cu does: the hub's virtual
 // rows, whose owners a second launch over the owner rows applies from
 // their ordered sums (`upd`, ops/segment.py::owner_sums).  Where xg_next

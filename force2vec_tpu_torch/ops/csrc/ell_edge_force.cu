@@ -18,11 +18,9 @@
 // rows start first and the ~112 K narrow rows fill in behind them.  Hub
 // virtual rows write their partial sums to output rows past the table's
 // n_pad, which the caller adds into their owners.  The per-bucket entry
-// point is a one-entry table over the same kernel.  With `accumulate` a
-// launch adds each row's sum into out (one rounded f32 add per element, as
-// `out.add_(sum)` makes): the hot/cold gather split runs its cold table
-// storing and then its hot table adding into the same rows, two launches,
-// so that no launch holds two entries that write one row.
+// point is a one-entry table over the same kernel.  A launch stores each
+// row's sum: its EllArgs are value-initialised, so the add-into-out flag
+// that ell_sample_force sets stays 0.
 //
 // What bounds it: random row reads of the replica.  At the bench shape
 // (131,072 vertices, dim 128, bf16) an iteration reads 2.10 M neighbour
@@ -113,17 +111,17 @@ template cudaError_t edge_launch(EllArgs<TypeOf<F2V_GATHER>, TypeOf<F2V_X>>&,
 // table: [n_entries, 5] int64 in host memory (row_begin, nbr_begin,
 // out_begin, rows, width), in launch order.  sm_table: the device's
 // [2048] f32 sigmoid table for kSigmoidTable, else unused (may be null).
-// accumulate: add into out's rows instead of storing.  xg_dtype, x_dtype:
-// the gather table's and X's (x, invd and out) element types, DType codes
-// (an f32 X with any gather type, another X with its own).  step: a device
-// f32 scalar, read by the kernel (a captured launch reads each replay's).
+// xg_dtype, x_dtype: the gather table's and X's (x, invd and out) element
+// types, DType codes (an f32 X with any gather type, another X with its
+// own).  step: a device f32 scalar, read by the kernel (a captured launch
+// reads each replay's).
 extern "C" int f2v_ell_edge_force(const void* x, const void* xg,
                                   int xg_dtype, int x_dtype,
                                   const void* nbr, const void* deg,
                                   const void* xi_row, const void* invd,
                                   const void* sm_table, const void* step,
-                                  void* out, int accumulate,
-                                  const void* table, int n_entries, int dim,
+                                  void* out, const void* table,
+                                  int n_entries, int dim,
                                   int model, void* stream) {
   if (step == nullptr) return cudaErrorInvalidValue;
   return f2v::with_dtypes(xg_dtype, x_dtype, [&](auto types) {
@@ -140,7 +138,6 @@ extern "C" int f2v_ell_edge_force(const void* x, const void* xg,
     p.out = static_cast<TX*>(out);
     p.step = static_cast<const float*>(step);
     p.dim = dim;
-    p.accumulate = accumulate != 0;
     return f2v::edge_launch<T, TX>(p, static_cast<const int64_t*>(table),
                                    n_entries, model,
                                    static_cast<cudaStream_t>(stream));

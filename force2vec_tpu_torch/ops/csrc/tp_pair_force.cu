@@ -37,7 +37,7 @@
 // (common.cuh::ell_block) over the row classes of with_row_class (16-byte
 // pieces, G lanes a row, U neighbour rows in flight a group, x_i loaded
 // once per row over its whole width), with a scalar policy:
-// tp_pair_partial stores each slot's group sum (kStore) and accumulates no
+// tp_pair_partial stores each slot's group sum (kStore) and sums no
 // force; tp_pair_force reads the scalars a round at a time beside the ids
 // (kLoad) and makes no dot product.  The design before it (a warp per
 // table row, one slot at a time, 2- or 4-byte loads at stride 32, x_i
@@ -211,7 +211,7 @@ extern "C" int f2v_tp_pair_force(const void* x, const void* xg,
                                  const void* nbr, const void* deg,
                                  const void* xi_row, const void* invd,
                                  const void* sm_table, const void* a,
-                                 const void* step, void* out, int accumulate,
+                                 const void* step, void* out,
                                  const void* table, int n_entries, int dim,
                                  int kind, int model, void* stream) {
   if (step == nullptr) return cudaErrorInvalidValue;
@@ -224,7 +224,6 @@ extern "C" int f2v_tp_pair_force(const void* x, const void* xg,
     p.a = static_cast<const float*>(a);
     p.out = static_cast<TX*>(out);
     p.step = static_cast<const float*>(step);
-    p.accumulate = accumulate != 0;
     return f2v::force_launch<T, TX>(p, static_cast<const int64_t*>(table),
                                     n_entries, kind, model,
                                     static_cast<cudaStream_t>(stream));

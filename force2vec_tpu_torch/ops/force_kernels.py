@@ -317,10 +317,9 @@ def _edge_out(out, rows, x):
 
 
 def _launch_edge(model, x, xg, nbr, deg, xi_row, invd, step, out,
-                 table: np.ndarray, accumulate: bool = False) -> None:
+                 table: np.ndarray) -> None:
     """One ``ell_edge_force`` launch over ``table`` ([E, 5] int64 entries,
-    csrc/common.cuh::ell_plan), on checked operands; with ``accumulate``
-    it adds into ``out``'s rows."""
+    csrc/common.cuh::ell_plan), on checked operands."""
     dev = x.device
     _require(dev.type == "cuda", f"no kernel for device {dev}")
     _check_cuda_operands(x.shape[1], x, xg, out)
@@ -331,7 +330,7 @@ def _launch_edge(model, x, xg, nbr, deg, xi_row, invd, step, out,
             x.data_ptr(), xg.data_ptr(), _code(xg), _code(x),
             nbr.data_ptr(), deg.data_ptr(), xi_row.data_ptr(),
             invd.data_ptr(), _table_ptr(model.edge_coeff, dev),
-            step.data_ptr(), out.data_ptr(), int(accumulate),
+            step.data_ptr(), out.data_ptr(),
             table.ctypes.data, table.shape[0], x.shape[1],
             _EDGE_MODEL_IDS[model.edge_coeff], _stream(dev))
     _build.check(lib, "ell_edge_force", err)
@@ -474,24 +473,22 @@ def edge_work_table(parts, n_pad: int, out_rows: int, *,
 
 def ell_edge_force_table_plain(model: ForceModel, x, xg,
                                table: EdgeWorkTable, invd, step,
-                               out: Optional[torch.Tensor] = None,
-                               accumulate: bool = False) -> torch.Tensor:
+                               out: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
     """[out_rows, D]: ``ell_edge_force_plain`` of each entry, in its output
-    rows of ``out`` (a new tensor if not given); with ``accumulate`` added
-    into them (``out[rows].add_(sum)``)."""
+    rows of ``out`` (a new tensor if not given)."""
     if out is None:
-        _require(not accumulate, "accumulate needs out")
         out = torch.empty((table.out_rows, x.shape[1]), dtype=x.dtype,
                           device=x.device)
     for nbr, deg, xi_row, ob in table.parts():
-        s = ell_edge_force_plain(model, x, xg, nbr, deg, xi_row, invd, step)
-        _store(out[ob: ob + nbr.shape[0]], s, accumulate)
+        out[ob: ob + nbr.shape[0]] = ell_edge_force_plain(
+            model, x, xg, nbr, deg, xi_row, invd, step)
     return out
 
 
 def ell_edge_force_table(model: ForceModel, x, xg, table: EdgeWorkTable,
-                         invd, step, out: Optional[torch.Tensor] = None,
-                         accumulate: bool = False) -> torch.Tensor:
+                         invd, step, out: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """``ell_edge_force`` over every entry of ``table`` in one launch.
 
     x [table.n_pad, D] f32, bf16 or f16, xg [table.n_gather, D] of any of them
@@ -499,9 +496,8 @@ def ell_edge_force_table(model: ForceModel, x, xg, table: EdgeWorkTable,
     table was built with ``n_gather``), invd [table.n_pad] in x's dtype, step a
     float or a 0-d f32 tensor on x's device.  Writes into ``out``
     [table.out_rows, D] of x's dtype if given (every row, or with a
-    ``partial`` table its entries' rows, which then needs ``out``); with
-    ``accumulate`` adds into the entries' rows of ``out`` instead (one add
-    per element, as ``out.add_(sum)`` makes); returns it.
+    ``partial`` table its entries' rows, which then needs ``out``); returns
+    it.
     """
     _check_edge_operands(model, x, xg, invd)
     _require(x.shape[0] == table.n_pad,
@@ -511,14 +507,14 @@ def ell_edge_force_table(model: ForceModel, x, xg, table: EdgeWorkTable,
              f"{table.n_gather}")
     _require(table.nbr.device == x.device,
              f"table on {table.nbr.device}, x on {x.device}")
-    _require(out is not None or not (table.partial or accumulate),
-             "accumulate and a partial table need out")
+    _require(out is not None or not table.partial,
+             "a partial table needs out")
     out = _edge_out(out, table.out_rows, x)
     if x.device.type == "cpu":
         return ell_edge_force_table_plain(model, x, xg, table, invd, step,
-                                          out=out, accumulate=accumulate)
+                                          out=out)
     _launch_edge(model, x, xg, table.nbr, table.deg, table.xi_row, invd, step,
-                 out, table.entries, accumulate)
+                 out, table.entries)
     return out
 
 
@@ -880,8 +876,8 @@ def ell_edge_apply(model: ForceModel, x, xg, table: EdgeWorkTable, apply,
     xg[negs[i // group, s]]), each summed in
     f32 and rounded to X's dtype, and ``x[i] ← x[i] + (att + rep)``: the
     bits of ``ell_edge_force`` then ``grouped_rep_force``'s ``apply``, or
-    ``ell_sample_force``'s accumulate then ``x.add_(upd)``.  A storing
-    entry writes its rows' attraction sums into ``out``
+    ``ell_sample_force`` adding into the update then ``x.add_(upd)``.  A
+    storing entry writes its rows' attraction sums into ``out``
     [table.out_rows, D] (a new tensor if not given).  Returns ``out``
     (None for a table with no output rows).
 
@@ -1041,14 +1037,13 @@ def tp_pair_partial_plain(model: ForceModel, x, xg,
 
 def tp_pair_force_plain(model: ForceModel, kind: str, x, xg,
                         table: EdgeWorkTable, a, invd, step,
-                        out: Optional[torch.Tensor] = None,
-                        accumulate: bool = False) -> torch.Tensor:
+                        out: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """[out_rows, D]: per entry, the model's ``kind`` force summed over the
     slots (``ell_edge_force_terms`` or ``ell_sample_force_terms``), each
     pair's scalar taken from ``a`` [slots] instead of these columns.
-    Writes (or with ``accumulate`` adds) into ``out`` if given."""
+    Writes into ``out`` if given."""
     if out is None:
-        _require(not accumulate, "accumulate needs out")
         out = torch.zeros((table.out_rows, x.shape[1]), dtype=x.dtype,
                           device=x.device)
     for (rb, nb, ob, rows, width), (nbr, deg, xi_row, _) in zip(
@@ -1059,7 +1054,7 @@ def tp_pair_force_plain(model: ForceModel, kind: str, x, xg,
                                       step, rsum) if kind == "edge" else
                  ell_sample_force_terms(model, x, xg, nbr, deg, xi_row, step,
                                         rsum))
-        _store(out[ob: ob + rows], terms.sum(dim=1), accumulate)
+        out[ob: ob + rows] = terms.sum(dim=1)
     return out
 
 
@@ -1095,14 +1090,13 @@ def tp_pair_partial(model: ForceModel, x, xg,
 
 
 def tp_pair_force(model: ForceModel, kind: str, x, xg, table: EdgeWorkTable,
-                  a, invd, step, out: Optional[torch.Tensor] = None,
-                  accumulate: bool = False) -> torch.Tensor:
+                  a, invd, step, out: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """The ``kind`` force over ``table`` on this rank's columns, from the
     pair scalars ``a`` [slots] f32 reduced over the tp ranks
     (``tp_pair_partial``'s, summed; f32 whatever X's dtype).  invd
     [table.n_pad] in x's dtype (read by the sigmoid edge forces).  Writes
-    into ``out`` [table.out_rows, d] of x's dtype if given (with
-    ``accumulate``, adds into it); returns it.
+    into ``out`` [table.out_rows, d] of x's dtype if given; returns it.
     """
     k, mid = _tp_kind(model, kind)
     _check_tp_operands(x, xg, table)
@@ -1112,12 +1106,12 @@ def tp_pair_force(model: ForceModel, kind: str, x, xg, table: EdgeWorkTable,
     _require(a.shape[0] == table.nbr.shape[0], "a must hold one scalar per "
                                                "slot of the table")
     _require(invd.shape == (x.shape[0],), "invd must have one entry per x row")
-    _require(out is not None or not (accumulate or table.partial),
-             "accumulate and a partial table need out")
+    _require(out is not None or not table.partial,
+             "a partial table needs out")
     out = _edge_out(out, table.out_rows, x)
     if dev.type == "cpu":
         return tp_pair_force_plain(model, kind, x, xg, table, a, invd, step,
-                                   out=out, accumulate=accumulate)
+                                   out=out)
     _require(dev.type == "cuda", f"no kernel for device {dev}")
     _check_aligned(out)
     fn = model.edge_coeff if kind == "edge" else model.sample_force
@@ -1128,7 +1122,7 @@ def tp_pair_force(model: ForceModel, kind: str, x, xg, table: EdgeWorkTable,
             x.data_ptr(), xg.data_ptr(), _code(xg), _code(x),
             table.nbr.data_ptr(), table.deg.data_ptr(),
             table.xi_row.data_ptr(), invd.data_ptr(), _table_ptr(fn, dev),
-            a.data_ptr(), step.data_ptr(), out.data_ptr(), int(accumulate),
+            a.data_ptr(), step.data_ptr(), out.data_ptr(),
             table.entries.ctypes.data, table.entries.shape[0], x.shape[1],
             k, mid, _stream(dev))
     _build.check(lib, "tp_pair_force", err)

@@ -4,7 +4,7 @@ configuration.
     python3 -m force2vec_tpu_torch.tools.profile_iter [--iters 20]
         [--schedule sync|vertex]
         [--model tdist|sigmoid|rwalk|fr|linlog|forceatlas] [--per-vertex]
-        [--n 131072] [--dim 128] [--hot-rows K]
+        [--n 131072] [--dim 128]
         [--dtype float32|bfloat16|float16]
         [--gather-dtype float32|bfloat16|float16] [--trace PATH]
         [--json PATH]
@@ -14,19 +14,17 @@ Needs one CUDA card.  Builds the same ``SyncForce2Vec`` as ``chip_smoke.py``
 with ``--per-vertex`` ``-bs 1`` negatives, with ``--n`` the graph's
 vertex count, as ``bench.py``'s ``BENCH_N``, and with ``--dim`` the
 embedding width, any from 1 to ``force_kernels.KERNEL_MAX_DIM``, and with
-``--hot-rows`` the hot/cold split's hot suffix in rows, 0, the default,
-for none, with ``--dtype`` X's dtype: float32, the default, or bfloat16
-or float16, and with ``--gather-dtype`` the gather replica's: by default
-the bench's bf16 replica for an f32 X and X itself for the others, no
-cast; ``SyncForce2Vec._replica`` says what the other pairs gather) and
-measures, on the kernel
-path, an iteration as ``run_iteration`` runs it and as ``train()`` runs
-it (for walk models, the walk engine's draw included).  With
-``--schedule vertex`` it builds ``VertexShardedForce2Vec`` at P = 1 (one
-card, no process group) on the same graph and configuration instead
+``--dtype`` X's dtype: float32, the default, or bfloat16 or float16, and
+with ``--gather-dtype`` the gather replica's: by default the bench's bf16
+replica for an f32 X and X itself for the others, no cast;
+``SyncForce2Vec._replica`` says what the other pairs gather) and measures,
+on the kernel path, an iteration as ``run_iteration`` runs it and as
+``train()`` runs it (for walk models, the walk engine's draw included).
+With ``--schedule vertex`` it builds ``VertexShardedForce2Vec`` at P = 1
+(one card, no process group) on the same graph and configuration instead
 (``--per-vertex``: its ``pool`` sampling, as the CLI's ``-bs 1``; X's own
-dtype is gathered, and ``--hot-rows`` is refused); its eager iteration is
-``_iteration`` on fixed pool ids (and choices, and walks drawn each time),
+dtype is gathered, and ``--gather-dtype`` is refused; its layout's stats
+are printed); its eager iteration is ``_iteration`` on fixed pool ids (and choices, and walks drawn each time),
 as F1 of ``chip_smoke.py`` times it, and ``span_*`` its ``run_span``:
 
 * three times each, since the host's speed varies from one moment to the
@@ -47,11 +45,7 @@ as F1 of ``chip_smoke.py`` times it, and ``span_*`` its ``run_span``:
   calls per iteration (``host_launches``: kernel and graph launches,
   async copies and fills, ``LAUNCH_APIS``);
 * ``edge_g_rows_per_s``: the edge kernel's neighbour rows (the graph's
-  edges, or the walks' steps) per second of its device time;
-* ``split``: ``split_stats()``, and with the split each of the two edge
-  launches queued alone, three times: the cold table (storing) and the
-  hot table (adding), each with its real slots and G rows/s, then the
-  pair queued.
+  edges, or the walks' steps) per second of its device time.
 
 Every line names the card and its power limit.  ``--trace`` writes the
 profiler's Chrome trace of the ``run_span`` window; ``--json`` writes the
@@ -130,43 +124,6 @@ def profile_window(fn, iters: int) -> dict:
             "host_launches": launches / iters}, prof
 
 
-def real_slots(table) -> int:
-    return int(table.deg.sum())
-
-
-def split_launches(fv, x, xg, card, reps: int) -> dict:
-    """The split's two edge launches queued alone, three times each, then
-    the pair (cold, then hot) queued."""
-    cold, hot = fv.edge_table, fv.hot_table
-    out = fk.ell_edge_force_table(fv.model, x, xg, cold, fv.inv_deg, fv.lr)
-
-    def cold_launch():
-        fk.ell_edge_force_table(fv.model, x, xg, cold, fv.inv_deg, fv.lr,
-                                out=out)
-
-    def hot_launch():
-        fk.ell_edge_force_table(fv.model, x, xg, hot, fv.inv_deg, fv.lr,
-                                out=out, accumulate=True)
-
-    res = {"cold_slots": real_slots(cold), "hot_slots": real_slots(hot),
-           "cold_entries": len(cold.entries), "hot_entries": len(hot.entries),
-           "cold_ms": [], "hot_ms": []}
-    for _ in range(3):
-        res["cold_ms"].append(queued_device_ms(cold_launch, reps))
-        res["hot_ms"].append(queued_device_ms(hot_launch, reps))
-    for k in ("cold", "hot"):
-        ms = min(res[f"{k}_ms"])
-        res[f"{k}_g_rows_per_s"] = res[f"{k}_slots"] / ms / 1e6
-        print(f"{k} launch: queued ms {res[f'{k}_ms']}, "
-              f"{res[f'{k}_slots']} real slots, {res[f'{k}_entries']} "
-              f"entries, {res[f'{k}_g_rows_per_s']:.3f} G rows/s [{card}]",
-              flush=True)
-    res["pair_ms"] = [queued_device_ms(lambda: (cold_launch(), hot_launch()),
-                                       reps) for _ in range(2)]
-    print(f"cold then hot, queued: {res['pair_ms']} ms [{card}]", flush=True)
-    return res
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
@@ -178,8 +135,6 @@ def main(argv=None) -> int:
     ap.add_argument("--dim", type=int, default=BENCH_CONFIG.dim,
                     help="embedding width (the kernels' rows are it "
                     "rounded up to 8)")
-    ap.add_argument("--hot-rows", type=int, default=0,
-                    help="the split's hot suffix in rows (0: no split)")
     ap.add_argument("--dtype", default="float32",
                     choices=[str(d).split(".")[1] for d in fk.X_DTYPES],
                     help="X's dtype (TrainConfig.dtype)")
@@ -198,16 +153,16 @@ def main(argv=None) -> int:
     card = card_name_and_power()
     print(card, flush=True)
     vertex = args.schedule == "vertex"
-    if vertex and (args.hot_rows or args.gather_dtype):
+    if vertex and args.gather_dtype:
         print("profile_iter: the vertex schedule gathers X itself: no "
-              "--hot-rows or --gather-dtype", file=sys.stderr)
+              "--gather-dtype", file=sys.stderr)
         return 2
     gather = args.gather_dtype or (BENCH_CONFIG.gather_dtype
                                    if args.dtype == "float32" and not vertex
                                    else None)
     print(f"schedule={args.schedule} model={args.model} "
           f"per_vertex={args.per_vertex} n={args.n} "
-          f"dim={args.dim} hot_rows={args.hot_rows} dtype={args.dtype} "
+          f"dim={args.dim} dtype={args.dtype} "
           f"gather_dtype={gather}", flush=True)
 
     cfg = dataclasses.replace(BENCH_CONFIG, model=args.model, dim=args.dim,
@@ -221,14 +176,12 @@ def main(argv=None) -> int:
         fv = VertexShardedForce2Vec(
             graph, cfg, min_width=MIN_WIDTH, hub_width=HUB_WIDTH,
             sampling="pool" if args.per_vertex else "shared", device=dev)
-        stats = {"vertex_layout": fv.layout.stats}
     else:
-        fv = SyncForce2Vec(graph, cfg, MIN_WIDTH, HUB_WIDTH, device=dev,
-                           hot_rows=args.hot_rows)
-        stats = fv.split_stats()
+        fv = SyncForce2Vec(graph, cfg, MIN_WIDTH, HUB_WIDTH, device=dev)
     build_s = time.perf_counter() - t0
-    print(f"{'layout' if vertex else 'split_stats'}={json.dumps(stats)} "
-          f"(graph and trainer built in {build_s:.1f} s)", flush=True)
+    layout = fv.layout.stats if vertex else None
+    print(f"graph and trainer built in {build_s:.1f} s"
+          + (f"; layout={json.dumps(layout)}" if vertex else ""), flush=True)
     x = fv.init_embedding(seed=1)
     is_walk = fv.model.attraction == "walk"
     if vertex:
@@ -303,7 +256,7 @@ def main(argv=None) -> int:
            "n": args.n, "dim": cfg.dim,
            "dtype": cfg.dtype, "gather_dtype": cfg.gather_dtype,
            "per_vertex_samples": cfg.per_vertex_samples,
-           "split": {"stats": stats}, "span_graph": res_graph,
+           "layout": layout, "span_graph": res_graph,
            "repeats": []}
     for _ in range(3):
         r = {}
@@ -314,8 +267,6 @@ def main(argv=None) -> int:
         res["repeats"].append(r)
         print(" ".join(f"{k}={v:.4f}" for k, v in r.items()) + f" [{card}]",
               flush=True)
-    if not vertex and fv.hot_table is not None:
-        res["split"].update(split_launches(fv, x, xg, card, args.iters))
     res["edge_wrapper_host_us"] = 1e3 * host_ms(edge_call, 200)
     print(f"edge_wrapper_host_us={res['edge_wrapper_host_us']:.2f} [{card}]",
           flush=True)

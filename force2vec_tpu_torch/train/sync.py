@@ -19,17 +19,6 @@ iteration over the degree-sorted ELL layout (graphs/csr.py::SyncLayout):
      row order into their owner rows (in f32, rounded once to X's dtype:
      the same bits on every run), and a width-0 entry zeroes the rows no
      bucket writes (the hub owners and padding);
-   * with the hot/cold gather split (``hot_rows > 0``; the layout's hot
-     suffix, the top ``hot_rows`` rows of the degree order, is the
-     relabeled rows ``[n - hot_rows, n)``): that launch over the cold
-     slots (``edge_table``), then a second over the hot slots
-     (``hot_table``, a partial table of the rows with hot slots), which
-     adds into the rows the first wrote.  The JAX package gathers the hot
-     slots from a compact copy of the suffix; on the card the suffix is a
-     range of the same replica, so the hot table holds ids of the whole
-     table.  The split gives the unsplit sums up to their order.  It is
-     off unless asked for: on the H100 it was slower at every replica
-     size and hot share measured (``PERF.md`` §9.6);
    * walk models (``rwalk``): one launch over every table row, whose
      neighbours are the row's ``[walk_length]`` walk targets, drawn each
      iteration by the walk engine (``draw_walks``: a torch draw a step,
@@ -53,22 +42,22 @@ iteration over the degree-sorted ELL layout (graphs/csr.py::SyncLayout):
    the repulsion applied it.
 
 Steps 2 to 4 are one pass (``fused_apply``, decided by the constructor)
-where the launch may write X while it runs: at one rank, with no hot
-table, a CSR model with an ``add`` update (tdist, sigmoid and its table
-σ), and a replica of its own (an f32 X beside a bf16 or f16
-``gather_dtype``).  ``ell_edge_apply`` runs the edge kernel's launch over
-``apply_table`` (``edge_table``'s entries); each row then sums its ns
-samples' repulsion (row i takes negatives ``i // batch_size``, or its own
-with per-vertex negatives) and writes ``X += att + rep`` from registers,
-so the update never goes through device memory.  The hub's virtual rows
-store their partial sums; their owners, whose x those rows read while the
-first launch runs, are applied by a second launch over ``owner_table``
-from their ordered sums (``ops/segment.py::owner_sums``).  Every other
+where the launch may write X while it runs: at one rank, a CSR model
+with an ``add`` update (tdist, sigmoid and its table σ), and a replica
+of its own (an f32 X beside a bf16 or f16 ``gather_dtype``).
+``ell_edge_apply`` runs the edge kernel's launch over ``apply_table``
+(``edge_table``'s entries); each row then sums its ns samples' repulsion
+(row i takes negatives ``i // batch_size``, or its own with per-vertex
+negatives) and writes ``X += att + rep`` from registers, so the update
+never goes through device memory.  The hub's virtual rows store their
+partial sums; their owners, whose x those rows read while the first
+launch runs, are applied by a second launch over ``owner_table`` from
+their ordered sums (``ops/segment.py::owner_sums``).  Every other
 configuration runs the passes above.
 
-The carried replica (``replica_carry``, decided by the constructor): where
-one launch writes every row of an f32 X beside a bf16 or f16 replica at
-one rank with no hot table (the fused pass, or the grouped repulsion's
+The carried replica (``replica_carry``, decided by the constructor):
+where one launch writes every row of an f32 X beside a bf16 or f16
+replica at one rank (the fused pass, or the grouped repulsion's
 ``apply``), it also writes each new row, rounded to the replica's dtype,
 into the replica the next iteration gathers from (``xg_next``), and step
 1's cast leaves the iterations of ``run_span``.  The fused pass gathers
@@ -78,11 +67,12 @@ parity, ``train/graph.py``); the grouped ``apply`` reads only its
 samples, gathered before it runs, so one replica serves.  A span's first
 iteration gathers from a carried replica only where the last span left
 it on this X: the same tensor, at the same ``_version``, no launch that
-writes X run since (``force_kernels.launch_counts``) and the span starting
-at the iteration after the last; else X is cast into it before the span
-(``_start_span``).  The counters ``replica.carried`` (iterations whose
-replica the previous iteration wrote) and ``replica.casts`` count both.
-``run_iteration`` casts as before and leaves no carried replica.
+writes X run since (``force_kernels.launch_counts``) and the span
+starting at the iteration after the last; else X is cast into it before
+the span (``_start_span``).  The counters ``replica.carried``
+(iterations whose replica the previous iteration wrote) and
+``replica.casts`` count both.  ``run_iteration`` casts as before and
+leaves no carried replica.
 
 X is f32, bf16 or f16 (``config.dtype``; ``force_kernels.X_DTYPES``, the
 constructor refuses any other, naming it).  The update, ``inv_deg`` and
@@ -110,8 +100,7 @@ card), X is replicated over the dp ranks and its dim split over the tp
 ranks:
 
 * dp: each rank runs the edge kernel over a work table of its 1/dp slice
-  of every bucket (the hub's virtual rows too; with the split, the hot
-  slots of the same rows into the same local rows); one
+  of every bucket (the hub's virtual rows too); one
   ``all_gather_into_tensor`` reassembles the slices, and a fixed
   permutation (``index_select``) puts them in row order.  The repulsion
   runs over the rank's 1/dp of the rows (``grouped_rep_force`` from the
@@ -121,13 +110,11 @@ ranks:
 * tp: a pair's scalar is a sum over the tp ranks' columns, which the
   fused kernels cannot make; the forces run as the split-dim kernels
   instead, over the attraction's and the repulsion's work tables laid end
-  to end (the split's cold and hot tables both; group-shared negatives
-  as each row's own row of ns ids): one
+  to end (group-shared negatives as each row's own row of ns ids): one
   ``tp_pair_partial`` launch over both, one ``all_reduce`` of the scalars
   over tp (counted in ``force_kernels.launch_counts["tp_all_reduce"]``),
-  then a ``tp_pair_force`` launch for each force on its slice of them
-  (the hot table's adding into the cold's rows).  The JAX package runs that
-  step in jnp ops (Pallas off at tp > 1).
+  then a ``tp_pair_force`` launch for each force on its slice of them.
+  The JAX package runs that step in jnp ops (Pallas off at tp > 1).
 
 ``run_span`` and ``train()`` run one iteration a CUDA graph replay on a
 card (``train/graph.py``, the counterpart of the JAX package's one-program
@@ -172,49 +159,13 @@ class DeviceBucket:
     kernel call takes them (``SyncForce2Vec.device_buckets``)."""
 
     start: int  # first relabeled row of the bucket's update
-    nbr: torch.Tensor  # [rows, width] int32 (split: the cold slots)
+    nbr: torch.Tensor  # [rows, width] int32
     deg: torch.Tensor  # [rows] int32
     xi_row: torch.Tensor  # [rows] int32 table row of each bucket row
     # hub: where each owner row's run of real virtual rows starts, and the
     # end of the last (ops/segment.py::owner_offsets); how many there are
     owner_off: Optional[torch.Tensor] = None  # [n - start + 1] int64
     n_virtual: int = 0
-
-
-def _split_bucket_rows(b, hot_start: int):
-    """A split bucket's ``(cold_nbr, cold_deg, hot_nbr, hot_deg)``, int32
-    with one row per bucket row (``b.count``): each run's (``HotSpan``'s)
-    cold and hot rectangles put back in the bucket's row order, at the
-    widest run's width (the kernel reads no slot past a row's deg, so the
-    width costs no gather), hot ids made ids of the whole table
-    (``hot_flat + hot_start``), padding slots 0."""
-    cw = max(sp.cold_width for sp in b.hot_spans)
-    hw = max(sp.width for sp in b.hot_spans)
-    cn = np.zeros((b.count, cw), dtype=np.int32)
-    hn = np.zeros((b.count, hw), dtype=np.int32)
-    cd = np.zeros(b.count, dtype=np.int32)
-    hd = np.zeros(b.count, dtype=np.int32)
-    for sp in b.hot_spans:
-        r = slice(sp.row_off, sp.row_off + sp.count)
-        d = slice(sp.deg_off, sp.deg_off + sp.count)
-        cd[r], hd[r] = b.deg[d], b.hot_deg[d]
-        if sp.cold_width:
-            cn[r, :sp.cold_width] = b.nbr[
-                sp.cold_off: sp.cold_off + sp.count * sp.cold_width].reshape(
-                    sp.count, sp.cold_width)
-        if sp.width:
-            ids = b.hot_flat[sp.flat_off: sp.flat_off + sp.count * sp.width]
-            real = np.arange(sp.width)[None, :] < hd[r][:, None]
-            hn[r, :sp.width] = np.where(
-                real, ids.reshape(sp.count, sp.width) + hot_start, 0)
-    return cn, cd, hn, hd
-
-
-def _runs(mask: np.ndarray) -> list:
-    """``[(r0, r1)]``: the maximal runs of consecutive True rows."""
-    edges = np.flatnonzero(np.diff(np.concatenate(
-        [[0], mask.astype(np.int8), [0]])))
-    return list(zip(edges[::2].tolist(), edges[1::2].tolist()))
 
 
 def _next_kw(xg_next) -> dict:
@@ -261,10 +212,7 @@ class SyncForce2Vec:
     this rank's columns); the constructor raises ``ValueError`` above.
     ``spmd``: the dp and tp groups this rank trains in (see the module's
     docstring); the rows then align to the least multiple of ``row_align``
-    and dp.  ``hot_rows``: the hot/cold split's hot suffix, 0 (the
-    default, no split: ``tools/profile_iter.py --hot-rows`` found it slower
-    on the H100 at every replica size and hot share tried, ``PERF.md``
-    §9.6); walk models take 0.
+    and dp.
     """
 
     @span("trainer.init")
@@ -276,7 +224,6 @@ class SyncForce2Vec:
         hub_width: int = 256,
         row_align: int = 8,
         *,
-        hot_rows: int = 0,
         spmd: SpmdAxes = SpmdAxes(),
         device="cuda",
     ):
@@ -316,17 +263,13 @@ class SyncForce2Vec:
                     "dim")
         self._gdt = (None if config.gather_dtype is None
                      else getattr(torch, config.gather_dtype))
-        if hot_rows > 0 and self.model.attraction == "walk":
-            raise ValueError(f"{self.model.name} draws walks over the unsplit "
-                             "layout; the hot/cold split takes hot_rows=0")
-        self.hot_rows = int(hot_rows)
         # the fused pass (ell_edge_apply: attraction, repulsion and X's
         # update in one launch), where it may write X while its rows
-        # gather: one rank, no hot table, a model it takes (a CSR
-        # attraction and an add update), and a replica of its own, an f32
-        # X beside a 2-byte gather dtype; else the separate passes
+        # gather: one rank, a model it takes (a CSR attraction and an add
+        # update), and a replica of its own, an f32 X beside a 2-byte
+        # gather dtype; else the separate passes
         self.fused_apply = (
-            spmd.n_dp == 1 and spmd.n_tp == 1 and self.hot_rows == 0
+            spmd.n_dp == 1 and spmd.n_tp == 1
             and force_kernels.applies(self.model)
             and self._dtype == torch.float32
             and self._gdt in (torch.bfloat16, torch.float16))
@@ -344,22 +287,17 @@ class SyncForce2Vec:
         # iteration's launches write in turn, 2 on the fused pass, 1 for
         # the grouped apply, 0 (a cast each iteration) elsewhere
         carries = self.fused_apply or (
-            self.rep_mode == "apply" and self.hot_rows == 0
-            and self._dtype == torch.float32
+            self.rep_mode == "apply" and self._dtype == torch.float32
             and self._gdt in (torch.bfloat16, torch.float16))
         self.replica_carry = (2 if self.fused_apply else 1) if carries else 0
         self._replicas = None  # allocated by the first span
         # (weak reference to X, _carry_key) that the last span left valid
         self._carry_mark = None
         self._span_first, self._span_cast = 0, False
-        # hot/cold split under dp: the JAX package aligns the span
-        # rectangles to the dp row quantum, lcm(8, dp)
         self.layout = SyncLayout.build(
             graph, min_width=min_width, hub_width=hub_width,
             row_align=row_align,
             widths=SyncLayout.widths_for(min_width, hub_width, "mult8"),
-            hot_rows=self.hot_rows,
-            span_align=math.lcm(8, spmd.n_dp),
         )
         self.lr = config.resolve_lr(self.model)
         self._span_gen = torch.Generator(device=self.device)
@@ -390,7 +328,7 @@ class SyncForce2Vec:
         self._gid = (torch.arange(lay.n_pad, device=dev)
                      // max(config.batch_size, 1))
         self.device_buckets = []
-        self.edge_table = self.hot_table = self._hub = None
+        self.edge_table = self._hub = None
         self.apply_table = self.owner_table = None
         if self.model.attraction == "walk":
             with span("walk.tables"):
@@ -408,22 +346,10 @@ class SyncForce2Vec:
         if self._tp:
             self._tp_tables()
 
-    def _host_rows(self, b):
-        """A non-hub bucket's ``(nbr, deg, hot_nbr, hot_deg)`` on the host,
-        one row per bucket row: the layout's arrays, or with the split its
-        cold and hot slots (``_split_bucket_rows``; hot None unsplit)."""
-        if b.hot_spans is None:
-            return b.nbr, b.deg, None, None
-        return _split_bucket_rows(b, self.layout.hot_start)
-
     def _bucket_tables(self) -> None:
         """``device_buckets``, the hub among them, and the attraction's
-        work tables (``edge_table``, and with the split ``hot_table``;
-        under dp this rank's slices of them)."""
+        work table (``edge_table``; under dp this rank's slices of it)."""
         lay, dev = self.layout, self.device
-        rows = [None if b.owners is not None else self._host_rows(b)
-                for b in lay.buckets]
-        hot = []  # (hot_nbr, hot_deg, xi_row, out_begin) of the real rows
         for bi, b in enumerate(lay.buckets):
             if b.owners is not None:
                 off = owner_offsets(b.owners - b.start, b.deg,
@@ -441,49 +367,28 @@ class SyncForce2Vec:
             end = (lay.buckets[bi + 1].start if bi + 1 < len(lay.buckets)
                    else lay.n)
             real = end - b.start
-            nbr, deg, hot_nbr, hot_deg = rows[bi]
-            xi_row = torch.arange(b.start, end, dtype=torch.int32, device=dev)
             self.device_buckets.append(DeviceBucket(
-                start=b.start, nbr=torch.as_tensor(nbr[:real], device=dev),
-                deg=torch.as_tensor(deg[:real], device=dev), xi_row=xi_row))
-            if hot_nbr is not None:
-                hot.append((hot_nbr[:real], hot_deg[:real], xi_row, b.start))
+                start=b.start, nbr=torch.as_tensor(b.nbr[:real], device=dev),
+                deg=torch.as_tensor(b.deg[:real], device=dev),
+                xi_row=torch.arange(b.start, end, dtype=torch.int32,
+                                    device=dev)))
         self._hub = next((b for b in self.device_buckets
                           if b.owner_off is not None), None)
         if self.spmd.n_dp > 1:
-            self._dp_edge_table(rows)
+            self._dp_edge_table()
         else:
             self.edge_table = self._edge_table()
-            self.hot_table = self._hot_table(hot, self.edge_table.out_rows)
         if self.fused_apply:
             self._fused_tables()
 
-    def _hot_table(self, buckets, out_rows: int):
-        """The split's hot work table: of each ``(hot_nbr, hot_deg, xi_row,
-        out_begin)`` (host arrays; xi_row on the device), the runs of rows
-        with hot slots, as entries of a ``partial`` table whose rows the
-        cold table (``edge_table``, the same ``out_rows``) has written;
-        None without hot slots."""
-        dev, parts = self.device, []
-        for nbr, deg, xi_row, ob in buckets:
-            for r0, r1 in _runs(deg > 0):
-                parts.append((torch.as_tensor(nbr[r0:r1], device=dev),
-                              torch.as_tensor(deg[r0:r1], device=dev),
-                              xi_row[r0:r1], ob + r0))
-        if not parts:
-            return None
-        return force_kernels.edge_work_table(parts, self.layout.n_pad,
-                                             out_rows, partial=True)
-
     def _tp_tables(self) -> None:
-        """tp: the attraction's work tables (``edge_table`` and, with the
-        split, ``hot_table``; or the walks of this rank's rows) and the
-        repulsion's (each of this rank's rows with its ns sample ids) laid
-        end to end (``force_kernels.concat_work_tables``) as ``_tp_cat``,
-        so that an iteration makes one ``tp_pair_partial`` launch and one
-        ``all_reduce``.  ``_tp_att``, ``_tp_hot`` (None unsplit) and
-        ``_tp_rep`` are views of its parts, whose ids each iteration's walks
-        and negatives overwrite."""
+        """tp: the attraction's work table (``edge_table``, or the walks of
+        this rank's rows) and the repulsion's (each of this rank's rows
+        with its ns sample ids) laid end to end
+        (``force_kernels.concat_work_tables``) as ``_tp_cat``, so that an
+        iteration makes one ``tp_pair_partial`` launch and one
+        ``all_reduce``.  ``_tp_att`` and ``_tp_rep`` are views of its
+        parts, whose ids each iteration's walks and negatives overwrite."""
         fk, cfg = force_kernels, self.config
         r0, r1 = self._rank_rows()
 
@@ -494,13 +399,10 @@ class SyncForce2Vec:
                                            self._all_rows[r0:r1],
                                            self.layout.n_pad)
 
-        att = ([per_row(cfg.walk_length, self._walk_deg)]
-               if self.model.attraction == "walk" else
-               [t for t in (self.edge_table, self.hot_table) if t is not None])
-        self._tp_cat, views = fk.concat_work_tables(
-            att + [per_row(cfg.ns, self._ns_deg)])
-        self._tp_att, self._tp_rep = views[0], views[-1]
-        self._tp_hot = views[1] if len(views) == 3 else None
+        att = (per_row(cfg.walk_length, self._walk_deg)
+               if self.model.attraction == "walk" else self.edge_table)
+        self._tp_cat, (self._tp_att, self._tp_rep) = fk.concat_work_tables(
+            [att, per_row(cfg.ns, self._ns_deg)])
 
     def _edge_table(self) -> force_kernels.EdgeWorkTable:
         """The work table of ``device_buckets``: a non-hub bucket writes its
@@ -577,31 +479,24 @@ class SyncForce2Vec:
             return self._dp_rows()
         return 0, self.layout.n_pad
 
-    def _dp_edge_table(self, host_rows) -> None:
-        """This dp rank's work tables: the rank's 1/dp slice of every
+    def _dp_edge_table(self) -> None:
+        """This dp rank's work table: the rank's 1/dp slice of every
         bucket's padded rows (the hub's virtual rows too), written to
-        consecutive rows of a local ``[L, D]`` output, with the split the
-        hot slots of the same rows into the same local rows
-        (``hot_table``); and the fixed permutation of the gathered ``[dp·L
-        + 1, D]`` slices (row dp·L kept 0) into row order, ``_dp_src`` for
-        the update's rows and ``_dp_hub_src`` for the hub's partial rows."""
+        consecutive rows of a local ``[L, D]`` output; and the fixed
+        permutation of the gathered ``[dp·L + 1, D]`` slices (row dp·L kept
+        0) into row order, ``_dp_src`` for the update's rows and
+        ``_dp_hub_src`` for the hub's partial rows."""
         lay, dev, sp = self.layout, self.device, self.spmd
         dp, d = sp.n_dp, sp.dp_index
-        parts, hot, spans, off = [], [], [], 0
+        parts, spans, off = [], [], 0
         on_dev = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
-        for b, hr in zip(lay.buckets, host_rows):
+        for b in lay.buckets:
             per = b.count // dp
             rows = np.arange(d * per, (d + 1) * per)
-            if b.owners is not None:
-                nbr, deg, hot_nbr, hot_deg = b.nbr, b.deg, None, None
-                xi = b.owners[rows]
-            else:
-                nbr, deg, hot_nbr, hot_deg = hr
-                xi = np.minimum(b.start + rows, lay.n_pad - 1)
-            xi = on_dev(xi.astype(np.int32))
-            parts.append((on_dev(nbr[rows]), on_dev(deg[rows]), xi, off))
-            if hot_nbr is not None:
-                hot.append((hot_nbr[rows], hot_deg[rows], xi, off))
+            xi = (b.owners[rows] if b.owners is not None
+                  else np.minimum(b.start + rows, lay.n_pad - 1))
+            parts.append((on_dev(b.nbr[rows]), on_dev(b.deg[rows]),
+                          on_dev(xi.astype(np.int32)), off))
             spans.append((b, per, off))
             off += per
         local = off
@@ -618,36 +513,10 @@ class SyncForce2Vec:
             src[b.start + i] = (i // per) * local + o + i % per
         self.edge_table = force_kernels.edge_work_table(parts, lay.n_pad,
                                                         local)
-        self.hot_table = self._hot_table(hot, local)
         self._dp_src = torch.as_tensor(src, device=dev)
         # the hub's real virtual rows, in order (the padding rows add 0)
         self._dp_hub_src = (None if hub_src is None else torch.as_tensor(
             hub_src[: self._hub.n_virtual], device=dev))
-
-    def split_stats(self) -> dict:
-        """The hot/cold split's accounting (the JAX package's
-        ``SyncForce2Vec.split_stats``): the padded slots of the layout's
-        hot rectangles and of the rest per iteration, their hot fraction and
-        the number of runs."""
-        lay = self.layout
-        hot = cold = rect = 0
-        for b in lay.buckets:
-            if b.hot_spans is None:
-                rect += b.count * b.width
-                continue
-            for sp in b.hot_spans:
-                hot += sp.rows_pad * sp.width
-                cold += sp.rows_pad * sp.cold_width
-        total = hot + cold + rect
-        return {
-            "hot_rows": self.hot_rows,
-            "hot_start": lay.hot_start,
-            "hot_slots_per_iter": hot,
-            "cold_slots_per_iter": cold + rect,
-            "hot_fraction": round(hot / total, 4) if total else 0.0,
-            "spans": sum(len(b.hot_spans) for b in lay.buckets
-                         if b.hot_spans),
-        }
 
     # -- embedding layout ---------------------------------------------------
 
@@ -739,28 +608,16 @@ class SyncForce2Vec:
         n_att = self._tp_att.nbr.shape[0]
         att = force(model, "edge", x, xg, self._tp_att, part[:n_att],
                     self.inv_deg, step)
-        if self._tp_hot is not None:  # the hot slots add into the cold's rows
-            n_hot = self._tp_hot.nbr.shape[0]
-            force(model, "edge", x, xg, self._tp_hot,
-                  part[n_att: n_att + n_hot], self.inv_deg, step, out=att,
-                  accumulate=True)
-            n_att += n_hot
         return att, force(model, "sample", x, xg, self._tp_rep, part[n_att:],
                           self.inv_deg, step)
 
     def _edge_table_launch(self, x, xg, step, plain) -> torch.Tensor:
         """This rank's attraction over ``edge_table``: ``[n_pad + hub rows,
-        D]``, or under dp its slices' ``[L, D]`` (``_place_attraction``).
-        With the split, a second launch over ``hot_table`` adds the hot
-        slots' sums into the rows the first wrote."""
+        D]``, or under dp its slices' ``[L, D]`` (``_place_attraction``)."""
         fk = force_kernels
         launch = fk.ell_edge_force_table_plain if plain else (
             fk.ell_edge_force_table)
-        out = launch(self.model, x, xg, self.edge_table, self.inv_deg, step)
-        if self.hot_table is not None:
-            launch(self.model, x, xg, self.hot_table, self.inv_deg, step,
-                   out=out, accumulate=True)
-        return out
+        return launch(self.model, x, xg, self.edge_table, self.inv_deg, step)
 
     def _dp_gather(self, local: torch.Tensor, rows: int) -> torch.Tensor:
         """``[rows, D]``: the dp ranks' ``local`` slices in rank order (one

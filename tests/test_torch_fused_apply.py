@@ -41,8 +41,7 @@ def graph():
     return synth_powerlaw_graph(n=397, avg_deg=6, seed=3)
 
 
-def _trainer(graph, layout=LAYOUT, model="tdist", spmd=SpmdAxes(),
-             hot_rows=0, **kw):
+def _trainer(graph, layout=LAYOUT, model="tdist", spmd=SpmdAxes(), **kw):
     """A trainer on ``graph``: f32 X, a bf16 replica, unless ``kw`` says
     otherwise; ``model`` ``sigmoid_table`` is sigmoid with the table's σ."""
     cfg = {**dict(dim=DIM, batch_size=BS, ns=NS, gather_dtype="bfloat16"),
@@ -50,7 +49,7 @@ def _trainer(graph, layout=LAYOUT, model="tdist", spmd=SpmdAxes(),
     table = model == "sigmoid_table"
     return SyncForce2Vec(graph, TrainConfig(
         model="sigmoid" if table else model, sm_table=table, **cfg),
-        device="cpu", spmd=spmd, hot_rows=hot_rows, **layout)
+        device="cpu", spmd=spmd, **layout)
 
 
 def _separate(fv):
@@ -105,7 +104,6 @@ BYPASSED = [
     ("rwalk", dict(model="rwalk"), {}),
     ("dp 2", dict(), dict(spmd=SpmdAxes(n_dp=2, dp_index=1))),
     ("tp 2", dict(), dict(spmd=SpmdAxes(n_tp=2, tp_index=0))),
-    ("hot rows", dict(), dict(hot_rows=40)),
 ]
 
 
@@ -115,9 +113,9 @@ BYPASSED = [
     + [(kw, extra, False) for _, kw, extra in BYPASSED],
     ids=[w for w, _, _ in ENGAGED] + [w for w, _, _ in BYPASSED])
 def test_the_constructor_engages_the_fused_pass(graph, kw, extra, engaged):
-    """One rank, a CSR model with an add update, no hot table, and a
-    replica of its own (an f32 X beside a bf16 or f16 gather dtype);
-    every other configuration keeps the separate passes and their tables."""
+    """One rank, a CSR model with an add update, and a replica of its own
+    (an f32 X beside a bf16 or f16 gather dtype); every other configuration
+    keeps the separate passes and their tables."""
     fv = _trainer(graph, **kw, **extra)
     assert fv.fused_apply is engaged
     assert (fv.apply_table is not None) is engaged

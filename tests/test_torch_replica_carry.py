@@ -15,8 +15,8 @@ iterations.  Held here:
   launch that writes X) casts again (``replica.casts`` rises) and still
   equals a trainer that casts each iteration;
 * the paths that bypass the carry (f32 gathers, 2-byte X, an energy model,
-  ``hot_rows``, dp, tp) hold no replica, capture one body and count no
-  carried iteration;
+  dp, tp) hold no replica, capture one body and count no carried
+  iteration;
 * the wrappers' ``xg_next``: the new rows rounded as ``x.to(dtype)``
   rounds them, and the refusals;
 * ``portbench/metrics/replica_carry_share.py`` reads the counters.
@@ -54,12 +54,12 @@ def fresh_counters():
     fk.reset_launch_counts()
 
 
-def _trainer(graph, layout=LAYOUT, hot_rows=0, spmd=SpmdAxes(), **kw):
+def _trainer(graph, layout=LAYOUT, spmd=SpmdAxes(), **kw):
     """An f32 X beside a bf16 replica, unless ``kw`` says otherwise."""
     cfg = {**dict(dim=DIM, batch_size=BS, ns=NS, gather_dtype="bfloat16"),
            **kw}
-    return SyncForce2Vec(graph, TrainConfig(**cfg), device="cpu",
-                         hot_rows=hot_rows, spmd=spmd, **layout)
+    return SyncForce2Vec(graph, TrainConfig(**cfg), device="cpu", spmd=spmd,
+                         **layout)
 
 
 def _cast_each_iteration(fv, x, seed, its):
@@ -192,7 +192,6 @@ BYPASSED = [
     ("fr", dict(model="fr"), {}),
     ("linlog", dict(model="linlog"), {}),
     ("-bs 1 rwalk", dict(model="rwalk", per_vertex_samples=True), {}),
-    ("hot rows", dict(), dict(hot_rows=40)),
     ("dp 2", dict(), dict(spmd=SpmdAxes(n_dp=2, dp_index=1))),
     ("tp 2", dict(), dict(spmd=SpmdAxes(n_tp=2, tp_index=0))),
 ]

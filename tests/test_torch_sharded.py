@@ -38,6 +38,8 @@ CASES = [
     ("sync_tdist", "sync", dict(model="tdist")),
     ("sync_per_vertex", "sync", dict(model="tdist", per_vertex_samples=True)),
     ("sync_rwalk", "sync", dict(model="rwalk")),
+    ("sync_fr", "sync", dict(model="fr")),
+    ("sync_sigmoid", "sync", dict(model="sigmoid")),
 ]
 
 

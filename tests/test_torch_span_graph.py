@@ -181,7 +181,6 @@ SPAN_CASES = (
     ("sync", "fr", dict(dtype="float16")),
     ("sync", "linlog", {}),
     ("sync", "sigmoid_table", {}),
-    ("sync", "tdist hot", {}),
     ("batch", "tdist", {}),
     ("batch", "tdist", dict(dtype="bfloat16", per_vertex_samples=True)),
     ("batch", "rwalk", {}),
@@ -193,8 +192,6 @@ SPAN_IDS = [f"{t}-{m}-{'-'.join(f'{k}={v}' for k, v in kw.items())}"
 
 
 def _trainer(graph, kind, model, kw):
-    hot = model.endswith(" hot")
-    model = model.split()[0]
     table = model.endswith("_table")
     cfg = dataclasses.replace(
         _config(model, kw.get("dtype", "float32")),
@@ -202,7 +199,7 @@ def _trainer(graph, kind, model, kw):
     if kind == "batch":
         return Force2Vec(graph, cfg, device="cpu")
     assert not table or cfg.sm_table
-    return SyncForce2Vec(graph, cfg, device="cpu", hot_rows=8 if hot else 0)
+    return SyncForce2Vec(graph, cfg, device="cpu")
 
 
 def _emb(fv, x):

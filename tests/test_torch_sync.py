@@ -73,11 +73,14 @@ def test_iterations_match_jax(graph, pallas, gather_dtype, tol):
                                jfv.unpad_embedding(xj), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("gather_dtype,tol", [(None, 1e-5),
+                                              ("bfloat16", 6e-3)])
 @pytest.mark.parametrize("model", ["sigmoid", "fr", "linlog", "forceatlas"])
-def test_other_models_match_jax(graph, model):
+def test_other_models_match_jax(graph, model, gather_dtype, tol):
     """Dot-product attraction (sigmoid), and the energy apply with a
     decayed step (the layout family), against the jnp path."""
-    kw = dict(dim=DIM, batch_size=BS, model=model, ns=NS)
+    kw = dict(dim=DIM, batch_size=BS, model=model, ns=NS,
+              gather_dtype=gather_dtype)
     jfv = JaxSync(_jax_graph(graph), JaxConfig(**kw), use_pallas=False,
                   **LAYOUT)
     tfv = SyncForce2Vec(graph, TrainConfig(**kw), device="cpu", **LAYOUT)
@@ -92,8 +95,8 @@ def test_other_models_match_jax(graph, model):
         step = tfv._step(it)
         xj = jfv.run_iteration(xj, negs, step=step)
         tfv.run_iteration(xt, negs, step=step)
-    np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=1e-5,
-                               atol=1e-5)
+    np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=tol,
+                               atol=tol)
 
 
 def test_plain_iteration_equals_wrapper_iteration_on_cpu(graph):
@@ -156,7 +159,8 @@ def _start_x(jfv, graph, rng, symmetric):
 @pytest.mark.parametrize("pallas", [False, True])
 @pytest.mark.parametrize("gather_dtype,tol", [(None, 1e-5),
                                               ("bfloat16", 6e-3)])
-@pytest.mark.parametrize("model", ["tdist", "sigmoid", "fr"])
+@pytest.mark.parametrize("model", ["tdist", "sigmoid", "fr", "linlog",
+                                   "forceatlas"])
 def test_per_vertex_iterations_match_jax(graph, model, pallas, gather_dtype,
                                          tol):
     """-bs 1: [n_pad, ns] negatives, one set per row (JAX: ell_force with

@@ -113,21 +113,8 @@ def test_tp_partials_sum_to_the_pair_scalar(name):
         assert (got[~real] == 0).all()
 
 
-def test_tp_force_accumulates_into_out():
-    """``accumulate`` adds into ``out`` as ``out.add_`` of the result."""
-    x, xg, invd = _inputs(7, "float32")
-    table, model = _table(8), get_model("tdist")
-    xt, it = torch.from_numpy(x), torch.from_numpy(invd)
-    a = fk.tp_pair_partial(model, xt, xg, table)
-    base = torch.randn(table.out_rows, D)
-    got = fk.tp_pair_force(model, "sample", xt, xg, table, a, it, STEP,
-                           out=base.clone(), accumulate=True)
-    want = base + fk.tp_pair_force(model, "sample", xt, xg, table, a, it, STEP)
-    assert torch.equal(got, want)
-
-
 @pytest.mark.parametrize("case", ["kind", "a_len", "x_rows", "xg_rows",
-                                  "accumulate", "no_edge_force",
+                                  "no_edge_force",
                                   "dim_not_multiple_of_8",
                                   "misaligned_row_base"])
 def test_tp_kernels_reject_bad_operands(case):
@@ -158,9 +145,8 @@ def test_tp_kernels_reject_bad_operands(case):
         xg = torch.cat([xg, xg[:1]])
     elif case == "no_edge_force":
         model = get_model("tdist_exact")
-    kw = {"accumulate": True} if case == "accumulate" else {}
     with pytest.raises(ValueError):
-        fk.tp_pair_force(model, kind, xt, xg, table, a, it, STEP, **kw)
+        fk.tp_pair_force(model, kind, xt, xg, table, a, it, STEP)
 
 
 def _sample_table(seed, rows=30, ns=5):

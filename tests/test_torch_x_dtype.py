@@ -371,22 +371,6 @@ def test_bf16_plain_grouped_rep_matches_pallas(name):
     _held(got, want, terms, unit_terms)
 
 
-def test_bf16_edge_table_adds_the_stored_result():
-    """A table launch adding into a bf16 out adds the value it would store:
-    ``out.add_`` of the stored result, bit for bit."""
-    g = _graph()
-    fv = SyncForce2Vec(g, TrainConfig(dim=DIM, batch_size=BS, ns=NS,
-                                      dtype=BF16), device="cpu", **LAYOUT)
-    x = fv.init_embedding(seed=2)
-    t = fv.edge_table
-    stored = fk.ell_edge_force_table(fv.model, x, x, t, fv.inv_deg, fv.lr)
-    base = torch.randn(stored.shape,
-                       generator=torch.Generator().manual_seed(5)).bfloat16()
-    got = fk.ell_edge_force_table(fv.model, x, x, t, fv.inv_deg, fv.lr,
-                                  out=base.clone(), accumulate=True)
-    assert torch.equal(got, base.add_(stored))
-
-
 def test_bf16_wrappers_reject_mixed_dtypes():
     """A bf16 X gathers only from bf16 rows, and out and invd take X's
     dtype; f32 X keeps taking either gather dtype."""

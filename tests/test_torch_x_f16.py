@@ -502,20 +502,6 @@ def test_f16_wrappers_refuse_pairs_the_kernels_lack():
         model, x.float(), x, idx, deg, xi_row, invd.float(), STEP).sum(dim=1))
 
 
-def test_f16_edge_table_adds_the_stored_result():
-    g = _graph()
-    fv = SyncForce2Vec(g, TrainConfig(dim=DIM, batch_size=BS, ns=NS,
-                                      dtype=F16), device="cpu", **LAYOUT)
-    x = fv.init_embedding(seed=2)
-    t = fv.edge_table
-    stored = fk.ell_edge_force_table(fv.model, x, x, t, fv.inv_deg, fv.lr)
-    base = torch.randn(stored.shape,
-                       generator=torch.Generator().manual_seed(5)).half()
-    got = fk.ell_edge_force_table(fv.model, x, x, t, fv.inv_deg, fv.lr,
-                                  out=base.clone(), accumulate=True)
-    assert torch.equal(got, base.add_(stored))
-
-
 # -- the batch trainer --------------------------------------------------------
 
 
